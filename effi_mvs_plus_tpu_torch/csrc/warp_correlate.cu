@@ -10,7 +10,8 @@
 // rot[b,v] and trans[b,v]: ray = rot.[x,y,1], xyz = ray*depth + trans, the
 // z==0 -> z+1e-8 guard, px = xyz.x/z, py = xyz.y/z.  Bilinear sampling is
 // grid_sample's align_corners=True / zeros padding: each out-of-image tap
-// contributes 0, weights are not renormalised.
+// contributes 0, weights are not renormalised.  The projection and taps
+// are those of warp_project.cuh, which the backward (K3) shares.
 //
 // Design.  One thread per output pixel of one (b, v); the thread keeps the
 // ref C-vector (C <= 32) in registers and loops over the D hypotheses, so
@@ -29,41 +30,12 @@
 // sweep.  Arithmetic is fp32 for fp32 and bf16 features alike; the output
 // is stored in the features' dtype.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "warp_project.cuh"
 
 namespace {
 
-__device__ __forceinline__ void from_f(float v, float* p) { *p = v; }
-__device__ __forceinline__ void from_f(float v, __nv_bfloat16* p) { *p = __float2bfloat16(v); }
-
-// Load C consecutive channels (16-byte aligned) into fp32 registers.
-template <int C>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[C]) {
-  const float4* q = reinterpret_cast<const float4*>(p);
-#pragma unroll
-  for (int i = 0; i < C / 4; ++i) {
-    float4 v = __ldg(q + i);
-    out[4 * i] = v.x; out[4 * i + 1] = v.y; out[4 * i + 2] = v.z; out[4 * i + 3] = v.w;
-  }
-}
-
-template <int C>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&out)[C]) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-#pragma unroll
-  for (int i = 0; i < C / 8; ++i) {
-    uint4 v = __ldg(q + i);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float2 f = __bfloat1622float2(h[j]);
-      out[8 * i + 2 * j] = f.x;
-      out[8 * i + 2 * j + 1] = f.y;
-    }
-  }
-}
+using effi::from_f;
+using effi::load_vec;
 
 // smp += w * src[idx, 0:C]
 template <int C, typename T>
@@ -95,13 +67,8 @@ warp_correlate_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   float r[C];
   load_vec<C>(ref + b * ref_bstride + (long long)pix * C, r);
 
-  const float* R = rot + (b * V + v) * 9;
-  const float* t = trans + (b * V + v) * 3;
-  const float fx = (float)x, fy = (float)y;
-  const float ray0 = R[0] * fx + R[1] * fy + R[2];
-  const float ray1 = R[3] * fx + R[4] * fy + R[5];
-  const float ray2 = R[6] * fx + R[7] * fy + R[8];
-  const float t0 = t[0], t1 = t[1], t2 = t[2];
+  const effi::Ray ray = effi::make_ray(rot + (b * V + v) * 9,
+                                       trans + (b * V + v) * 3, x, y);
 
   const T* s = src + b * src_bstride + (long long)v * HW * C;
   const float* dep = depth + b * dep_sb + y * dep_sh + x * dep_sw;
@@ -109,35 +76,13 @@ warp_correlate_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   const float inv_c = 1.0f / (float)C;
 
   for (int d = 0; d < D; ++d) {
-    const float z_d = __ldg(dep + d * dep_sd);
-    const float X = ray0 * z_d + t0;
-    const float Y = ray1 * z_d + t1;
-    float Z = ray2 * z_d + t2;
-    if (Z == 0.0f) Z = Z + 1e-8f;
-    const float px = X / Z;
-    const float py = Y / Z;
-    const float x0f = floorf(px), y0f = floorf(py);
-    const float wx = px - x0f, wy = py - y0f;
-    // bounds on the float coordinates: no int overflow for far taps
-    const bool vx0 = (x0f >= 0.0f) && (x0f < (float)W);
-    const bool vx1 = (x0f + 1.0f >= 0.0f) && (x0f + 1.0f < (float)W);
-    const bool vy0 = (y0f >= 0.0f) && (y0f < (float)H);
-    const bool vy1 = (y0f + 1.0f >= 0.0f) && (y0f + 1.0f < (float)H);
-    const float w00 = (1.0f - wx) * (1.0f - wy);
-    const float w01 = wx * (1.0f - wy);
-    const float w10 = (1.0f - wx) * wy;
-    const float w11 = wx * wy;
-
+    const effi::Taps tp = effi::taps_at(ray, __ldg(dep + d * dep_sd), H, W);
     float smp[C];
 #pragma unroll
     for (int c = 0; c < C; ++c) smp[c] = 0.0f;
-    // taps in the reference order: (x0,y0), (x1,y0), (x0,y1), (x1,y1); an
-    // int is formed only for a tap inside the image
-    if (vx0 && vy0) add_tap<C>(s, (int)y0f * W + (int)x0f, w00, smp);
-    if (vx1 && vy0) add_tap<C>(s, (int)y0f * W + (int)(x0f + 1.0f), w01, smp);
-    if (vx0 && vy1) add_tap<C>(s, (int)(y0f + 1.0f) * W + (int)x0f, w10, smp);
-    if (vx1 && vy1)
-      add_tap<C>(s, (int)(y0f + 1.0f) * W + (int)(x0f + 1.0f), w11, smp);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (tp.idx[k] >= 0) add_tap<C>(s, tp.idx[k], tp.w[k], smp);
     float acc = 0.0f;
 #pragma unroll
     for (int c = 0; c < C; ++c) acc += smp[c] * r[c];

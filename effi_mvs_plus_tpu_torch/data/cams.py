@@ -1,4 +1,4 @@
-"""Camera-file codec (MVSNet text format), and the
+"""Camera-file and pair-file codecs (MVSNet text formats), and the
 per-stage projection stacks the model consumes.
 
 The port's own copy of ``effi_mvs_plus_tpu/data/cams.py`` (numpy only).
@@ -6,6 +6,8 @@ The port's own copy of ``effi_mvs_plus_tpu/data/cams.py`` (numpy only).
 Format: line 0 'extrinsic', lines 1-4 the 4x4 world->cam matrix, line 6
 'intrinsic', lines 7-9 the 3x3 K, line 11
 ``depth_min depth_interval [num_depth depth_max]``.
+Pair files: first line = number of views, then per view two lines: ref
+id, then ``num_src src0 score0 src1 score1 ...``.
 """
 
 from __future__ import annotations
@@ -39,6 +41,18 @@ def write_cam_file(path, extrinsics, intrinsics, depth_fields):
         f.write("\n" + " ".join(str(float(v)) for v in depth_fields) + "\n")
 
 
+def read_pair_file(path):
+    """Returns list of (ref_view, [src_views]) with scores dropped."""
+    pairs = []
+    with open(path) as f:
+        num = int(f.readline())
+        for _ in range(num):
+            ref = int(f.readline().rstrip())
+            toks = f.readline().rstrip().split()
+            pairs.append((ref, [int(x) for x in toks[1::2]]))
+    return pairs
+
+
 # intrinsics scale of stage0..stage4 against the stage2 (quarter) baseline
 STAGE_SCALES = (0.25, 0.5, 1.0, 2.0, 4.0)
 
@@ -58,9 +72,13 @@ def stage_proj_matrices(extrinsics, intrinsics):
     return out
 
 
-def inverse_depth_values(depth_min, depth_interval, ndepth):
+def inverse_depth_values(depth_min, depth_interval, ndepth,
+                         disp_max_first=False):
     """The (Nd,) inverse-depth sample vector the model consumes: linspace
-    from 1/depth_max up to 1/depth_min."""
+    from 1/depth_max up to 1/depth_min (descending with
+    ``disp_max_first``)."""
     depth_max = depth_interval * ndepth + depth_min
-    return np.linspace(1.0 / depth_max, 1.0 / depth_min, ndepth,
-                       dtype=np.float32)
+    lo, hi = 1.0 / depth_max, 1.0 / depth_min
+    if disp_max_first:
+        return np.linspace(hi, lo, ndepth, dtype=np.float32)
+    return np.linspace(lo, hi, ndepth, dtype=np.float32)

@@ -1,11 +1,11 @@
-"""Network blocks, eval mode: FPN feature/context net, pixel-wise
-view-weight net, 3-D cost regulariser, cross-scale propagation block,
-ConvGRU update block.
+"""Network blocks: FPN feature/context net, pixel-wise view-weight net,
+3-D cost regulariser, cross-scale propagation block, ConvGRU update block.
 
 Port of the XLA branch of ``effi_mvs_plus_tpu/models/blocks.py``.  Every
 block is an ``nn.Module`` whose parameter names are the reference
 state-dict names, so the shipped checkpoints load strictly.  Tensors are
-channels-last, as in the JAX package.
+channels-last, as in the JAX package.  ``train()`` switches BN to batch
+statistics and turns on the update block's two channel dropouts (p=0.1).
 """
 
 from __future__ import annotations
@@ -32,7 +32,9 @@ def _level(cin, cout, first_k, first_stride, n):
 
 class FeatureNet(tnn.Module):
     """4-level conv pyramid + top-down FPN (feature_net).  x: (B,H,W,3).
-    Returns {'stage1': 1/8-res, 'stage2': 1/4-res, 'stage3': 1/2-res}."""
+    Returns {'stage1': 1/8-res, 'stage2': 1/4-res, 'stage3': 1/2-res}.
+    ``stat_groups``: train-mode BN statistics per group of the batch
+    axis (``nn.batch_norm``)."""
 
     def __init__(self, in_ch, out_ch):
         super().__init__()
@@ -46,16 +48,16 @@ class FeatureNet(tnn.Module):
         self.out2 = nn.Conv(2, in_ch[3], out_ch[1], 3, padding=1, bias=False)
         self.out3 = nn.Conv(2, in_ch[3], out_ch[2], 3, padding=1, bias=False)
 
-    def forward(self, x):
+    def forward(self, x, stat_groups=1):
         for level in (self.conv0, self.conv1):
             for blk in level:
-                x = blk(x)
+                x = blk(x, stat_groups)
         conv1 = x
         for blk in self.conv2:
-            x = blk(x)
+            x = blk(x, stat_groups)
         conv2 = x
         for blk in self.conv3:
-            x = blk(x)
+            x = blk(x, stat_groups)
         intra = x
         out = {"stage1": self.out1(intra)}
         intra = _upsample_nearest2x(intra) + self.inner1(conv2)
@@ -66,16 +68,18 @@ class FeatureNet(tnn.Module):
 
 
 class PixelwiseNet(tnn.ModuleList):
-    """Entropy map (B,H,W,1) -> per-view weight (B,H,W,1) in (0,1)."""
+    """Entropy map (B,H,W,1) -> per-view weight (B,H,W,1) in (0,1);
+    ``stat_groups`` as for ``FeatureNet``."""
 
     def __init__(self):
         super().__init__([nn.ConvBlock(2, 1, 16), nn.ConvBlock(2, 16, 16),
                           nn.ConvBlock(2, 16, 8), nn.Conv(2, 8, 1, 1)])
 
-    def forward(self, x):
-        for layer in self:
-            x = layer(x)
-        return torch.sigmoid(x)
+    def forward(self, x, stat_groups=1):
+        *blocks, head = self
+        for blk in blocks:
+            x = blk(x, stat_groups)
+        return nn.sigmoid(head(x))
 
 
 class CostRegNet(tnn.Module):
@@ -135,13 +139,14 @@ class ProjectionInput(tnn.Module):
         self.convd2 = nn.Conv(2, hdim, hdim, 3, padding=1)
         self.convd = nn.Conv(2, 2 * hdim, hdim - cdim, 3, padding=1)
         self.convc = nn.Conv(2, hdim, hdim, 1)
+        self.dropout = nn.ChannelDropout(0.1)
 
     def forward(self, disp, cost, context):
         cor = torch.relu(self.convc2(torch.relu(self.convc1(cost))))
         dfm = torch.relu(self.convd2(torch.relu(self.convd1(disp))))
         y = self.convd(torch.cat([cor, dfm], dim=-1))
-        # dropout is the identity at inference
-        return torch.relu(self.convc(torch.cat([y, context], dim=-1)))
+        return self.dropout(
+            torch.relu(self.convc(torch.cat([y, context], dim=-1))))
 
 
 class ConvGRU(tnn.Module):
@@ -164,9 +169,10 @@ class DepthHead(tnn.Module):
         super().__init__()
         self.conv1 = nn.Conv(2, hdim, hdim, 3, padding=1)
         self.conv2 = nn.Conv(2, hdim, 1, 3, padding=1)
+        self.dropout = nn.ChannelDropout(0.1)
 
     def forward(self, h):
-        return torch.tanh(self.conv2(torch.relu(self.conv1(h))))
+        return torch.tanh(self.dropout(self.conv2(torch.relu(self.conv1(h)))))
 
 
 class UpdateBlock(tnn.Module):
@@ -190,6 +196,9 @@ class UpdateBlock(tnn.Module):
         """hidden (B,H,W,hdim); inv_depth (B,H,W,1) normalised inverse
         depth; ``get_cost(depth)`` resamples the stored volumes around
         ``depth``.  Returns (hidden, mask_logits, [inv_depth per iter]).
+        The iterate is detached at the top of every iteration, as in the
+        reference: no gradient flows from one iteration's depth into the
+        next one's cost lookup and encoder.
 
         The inverse-depth iterate and its deltas accumulate in fp32
         whatever the compute dtype: a bf16 carry quantises the estimate to
@@ -200,6 +209,7 @@ class UpdateBlock(tnn.Module):
         inv_depth = inv_depth.float()
         inv_depths = []
         for _ in range(seq_len):
+            inv_depth = inv_depth.detach()
             depth = scale_inv_depth(inv_depth)[1]
             cost = get_cost(depth)
             x = self.encoder(inv_depth.to(cdt), cost, context)

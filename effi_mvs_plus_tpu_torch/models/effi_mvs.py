@@ -1,4 +1,4 @@
-"""Effi-MVS+ cascaded coarse-to-fine multi-view depth, inference.
+"""Effi-MVS+ cascaded coarse-to-fine multi-view depth.
 
 Port of ``effi_mvs_plus_tpu/models/effi_mvs.py``:
 
@@ -21,7 +21,15 @@ Data contract (channels-last, as in the JAX package):
 
 The two kernels of the path, the warp + correlation and the ConvGRU step,
 dispatch by the tensors' device (``ops/cuda_warp.py``,
-``ops/cuda_gru.py``); there is no implementation switch.
+``ops/cuda_gru.py``); there is no implementation switch.  Both are
+differentiable: on the card the warp's backward is the kernel K3 and the
+GRU's backward recomputes through the plain math.
+
+Training (``model.train()``): BN takes batch statistics per view in the
+feature net and per source view in PixelwiseNet (``stat_groups``), the
+update blocks apply channel dropout, and the forward detaches where the
+reference does — the stage-1 entropy input, the current depth of stages
+2-3 and the GRU iterate.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from typing import Tuple
 import torch
 from torch import nn as tnn
 
+from effi_mvs_plus_tpu_torch import nn
 from effi_mvs_plus_tpu_torch.core import geometry
 from effi_mvs_plus_tpu_torch.models import blocks
 from effi_mvs_plus_tpu_torch.ops import (
@@ -129,8 +138,9 @@ class EffiMVS(tnn.Module):
                                           _bshape(depth_min_g, disp.dim()),
                                           _bshape(depth_max_g, disp.dim()))
 
-        # feature extraction: all views through the FPN in one batch
-        feats = self.feature(imgs.reshape(B * V, H, W, 3))
+        # feature extraction: all views through the FPN in one batch, with
+        # per-view BN statistics in train mode
+        feats = self.feature(imgs.reshape(B * V, H, W, 3), stat_groups=V)
         feats = {k: v.reshape(B, V, *v.shape[1:]) for k, v in feats.items()}
         cnet = self.cnet_depth(imgs[:, 0])
 
@@ -167,10 +177,11 @@ class EffiMVS(tnn.Module):
                 sims = cuda_warp.warp_correlate_views(
                     ref_fea, f[:, 1:], rots, trs, depth_hyps)  # (B,V-1,D,h,w)
                 # in bf16 mode the entropy runs on the bf16 correlations
-                pnorm = torch.softmax(sims, dim=2)
+                pnorm = nn.softmax(sims.detach(), dim=2)
                 entropy = -torch.sum(pnorm * torch.log(pnorm + 1e-7), dim=2)
                 vw = self.PixelwiseNet(
-                    entropy.reshape(B * (V - 1), h, w, 1).to(dt))
+                    entropy.reshape(B * (V - 1), h, w, 1).to(dt),
+                    stat_groups=V - 1)
                 view_weights = vw.reshape(B, V - 1, h, w)
                 vw_ = view_weights[:, :, None]               # (B,V-1,1,h,w)
                 sim_sum = torch.sum(sims * vw_, dim=1)       # (B,D,h,w)
@@ -192,7 +203,7 @@ class EffiMVS(tnn.Module):
                 depth_predictions.append(init_depth)
             else:
                 # ----- dynamic cost volume around the current depth -----
-                cur_depth = depth_predictions[-1]
+                cur_depth = depth_predictions[-1].detach()
                 view_weights = _repeat2x_hw(view_weights, 2, 3)
                 drs_disp = geometry.depth_range_samples_local(
                     1.0 / cur_depth, cfg.ndepths[s], _bshape(interval_s, 3))

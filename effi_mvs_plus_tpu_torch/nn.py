@@ -1,4 +1,5 @@
-"""Eval-mode layer semantics of ``effi_mvs_plus_tpu/nn.py`` in PyTorch.
+"""Layer semantics of ``effi_mvs_plus_tpu/nn.py`` in PyTorch, eval and
+train mode.
 
 Tensors are channels-last, as in the JAX package: (B,H,W,C) and
 (B,D,H,W,C).  Each function hands PyTorch a channels-first *view* of the
@@ -8,23 +9,41 @@ PyTorch's own layouts — (O,I,kh,kw), (O,I,kd,kh,kw) and, for the
 transpose convolution, (I,O,kd,kh,kw) — which are the layouts of the
 shipped state dict.
 
-* ``conv2d/conv3d``  — symmetric zero padding, floor striding.
+* ``conv2d/conv3d``  — symmetric zero padding, floor striding.  As in the
+  JAX package the bias is added after the convolution, in the output's
+  dtype: in bf16 that is a second rounding, which the reference has too.
 * ``conv_transpose3d`` — torch ``ConvTranspose3d(stride, padding,
   output_padding)``: output size per dim
   ``(in-1)*stride - 2*pad + k + output_padding``.
-* ``batch_norm`` — running statistics, eps 1e-5 (inference only; dropout
-  is the identity there and has no counterpart here).
+* ``batch_norm`` — eps 1e-5.  Eval: running statistics.  Train (the
+  module's ``training`` flag): fp32 batch statistics ``E[x²] − E[x]²``,
+  normalisation with the biased variance, running statistics updated in
+  place with the unbiased variance and momentum 0.1.  With ``groups=G``
+  the leading axis is (B, G) flattened and each group has its own
+  statistics, the per-view BN of the reference, which runs its views
+  through the network one at a time.
+* ``softmax`` — op by op as XLA computes ``jax.nn.softmax``, each step
+  rounded to the input's dtype, where ``torch.softmax`` rounds once at
+  the end.  ``sigmoid`` — the same in bf16; ``torch.sigmoid`` in fp32,
+  for its finite gradient.
+* ``ChannelDropout`` — Dropout2d: one keep/drop per (sample, channel),
+  scaled by 1/(1-p), in train mode only; its random draws come from the
+  module's ``generator`` (``use_generator`` sets it model-wide).
 
-The modules below only hold parameters under the reference state-dict
-names (``conv.weight``, ``bn.running_mean`` ...) and call these
-functions.
+The modules below hold parameters under the reference state-dict names
+(``conv.weight``, ``bn.running_mean`` ...) with torch's default
+initialisation, and call these functions.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+MOMENTUM = 0.1
 
 
 def _cf(x):
@@ -37,49 +56,105 @@ def _cl(y):
     return y.movedim(1, -1)
 
 
+def _add_bias(y, b):
+    return y if b is None else y + b.to(y.dtype)
+
+
 def conv2d(x, w, b=None, stride=1, padding=0):
     """x: (B,H,W,I); w: (O,I,kh,kw).  Torch Conv2d semantics."""
-    y = F.conv2d(_cf(x), w.to(x.dtype), None if b is None else
-                 b.to(x.dtype), stride, padding)
-    return _cl(y)
+    return _add_bias(_cl(F.conv2d(_cf(x), w.to(x.dtype), None, stride,
+                                  padding)), b)
 
 
 def conv3d(x, w, b=None, stride=1, padding=0):
     """x: (B,D,H,W,I); w: (O,I,kd,kh,kw).  Torch Conv3d semantics."""
-    y = F.conv3d(_cf(x), w.to(x.dtype), None if b is None else
-                 b.to(x.dtype), stride, padding)
-    return _cl(y)
+    return _add_bias(_cl(F.conv3d(_cf(x), w.to(x.dtype), None, stride,
+                                  padding)), b)
 
 
 def conv_transpose3d(x, w, b=None, stride=1, padding=0, output_padding=0):
     """x: (B,D,H,W,I); w: (I,O,kd,kh,kw).  Torch ConvTranspose3d
     semantics."""
-    y = F.conv_transpose3d(_cf(x), w.to(x.dtype), None if b is None else
-                           b.to(x.dtype), stride, padding, output_padding)
-    return _cl(y)
+    return _add_bias(_cl(F.conv_transpose3d(
+        _cf(x), w.to(x.dtype), None, stride, padding, output_padding)), b)
 
 
-def batch_norm(x, bn):
-    """Eval-mode BatchNorm over the last (channel) axis with the running
-    statistics of ``bn`` (a ``BatchNorm`` holder), eps 1e-5."""
-    inv = torch.rsqrt(bn.running_var.float() + bn.eps)
-    scale = (bn.weight * inv).to(x.dtype)
-    shift = (bn.bias - bn.running_mean * bn.weight * inv).to(x.dtype)
-    return x * scale + shift
+def softmax(x, dim):
+    """``jax.nn.softmax``: exp(x - max) over the fp32 sum (rounded)."""
+    u = torch.exp(x - x.amax(dim, keepdim=True))
+    return u / u.float().sum(dim, keepdim=True).to(x.dtype)
+
+
+def sigmoid(x):
+    """``jax.nn.sigmoid``: 1 / (1 + exp(-x)) in bf16.  fp32 keeps
+    ``torch.sigmoid``, whose backward σ(1-σ) is finite everywhere: autograd
+    of the op-by-op form gives 0 * inf = NaN below x = -88, where exp(-x)
+    overflows, and fp32 is the dtype that trains."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1 / (1 + torch.exp(-x))
+
+
+def _update_running(bn, mean, unbiased, g):
+    """The reference updates the running statistics once per view, in
+    order: r' = (1-m)^g r + sum_v m (1-m)^(g-1-v) stat_v."""
+    m = MOMENTUM
+    w = m * (1 - m) ** torch.arange(g - 1, -1, -1, dtype=torch.float32,
+                                    device=mean.device)
+    with torch.no_grad():
+        bn.running_mean.copy_((1 - m) ** g * bn.running_mean + w @ mean)
+        bn.running_var.copy_((1 - m) ** g * bn.running_var + w @ unbiased)
+        bn.num_batches_tracked.add_(g)
+
+
+def batch_norm(x, bn, groups=1):
+    """BatchNorm over the last (channel) axis with the parameters and
+    running statistics of ``bn`` (a ``BatchNorm`` holder), eps 1e-5;
+    batch statistics when ``bn.training``, per group of the leading axis
+    taken as (B, groups) flattened row-major."""
+    if not bn.training:
+        inv = torch.rsqrt(bn.running_var.float() + bn.eps)
+        scale = (bn.weight * inv).to(x.dtype)
+        shift = (bn.bias - bn.running_mean * bn.weight * inv).to(x.dtype)
+        return x * scale + shift
+    g = int(groups)
+    xg = x.reshape(x.shape[0] // g, g, *x.shape[1:])
+    xf = xg.float()
+    axes = (0,) + tuple(range(2, xg.dim() - 1))
+    mean = xf.mean(axes)                                   # (g, C)
+    var = (xf * xf).mean(axes) - mean * mean
+    n = xg.numel() // (g * xg.shape[-1])
+    _update_running(bn, mean.detach(), var.detach() * (n / max(n - 1, 1)),
+                    g)
+    inv = torch.rsqrt(var + bn.eps)
+    bshape = (1, g) + (1,) * (xg.dim() - 3) + (-1,)
+    scale = (bn.weight * inv).reshape(bshape).to(x.dtype)
+    shift = (bn.bias - mean * bn.weight * inv).reshape(bshape).to(x.dtype)
+    return (xg * scale + shift).reshape(x.shape)
 
 
 class Conv(nn.Module):
-    """Parameter holder of one convolution (``weight`` [, ``bias``])."""
+    """Parameter holder of one convolution (``weight`` [, ``bias``]),
+    initialised as torch's ``ConvNd`` / ``ConvTransposeNd``."""
 
     def __init__(self, nd, cin, cout, k, stride=1, padding=0, bias=True,
                  transpose=False, output_padding=0):
         super().__init__()
         ks = (k,) * nd if isinstance(k, int) else tuple(k)
         shape = (cin, cout) + ks if transpose else (cout, cin) + ks
-        self.weight = nn.Parameter(torch.zeros(shape))
-        self.bias = nn.Parameter(torch.zeros(cout)) if bias else None
+        self.weight = nn.Parameter(torch.empty(shape))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.nd, self.stride, self.padding = nd, stride, padding
         self.transpose, self.output_padding = transpose, output_padding
+        self.reset_parameters()
+
+    def reset_parameters(self):
+        # torch's default: kaiming_uniform(a=sqrt(5)) over the stored
+        # layout's fan-in (I*k for a conv, O*k for a transpose conv)
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+        if self.bias is not None:
+            bound = 1 / math.sqrt(self.weight[0].numel())
+            nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x):
         if self.transpose:
@@ -103,8 +178,30 @@ class BatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long))
 
+    def forward(self, x, groups=1):
+        return batch_norm(x, self, groups)
+
+
+class ChannelDropout(nn.Module):
+    """Dropout2d on channels-last tensors: in train mode each (sample,
+    channel) is kept with probability 1-p, mask shape (B,1,...,1,C), and
+    kept values are scaled by 1/(1-p); the identity in eval mode.  The
+    masks are drawn from ``generator`` (torch's default one if None)."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = p
+        self.generator = None
+
     def forward(self, x):
-        return batch_norm(x, self)
+        if not self.training or self.p <= 0:
+            return x
+        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        keep = torch.rand(shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p),
+                           torch.zeros((), dtype=x.dtype, device=x.device)
+                           ).to(x.dtype)
 
 
 class ConvBlock(nn.Module):
@@ -119,6 +216,14 @@ class ConvBlock(nn.Module):
         self.bn = BatchNorm(cout)
         self.relu = relu
 
-    def forward(self, x):
-        y = self.bn(self.conv(x))
+    def forward(self, x, groups=1):
+        y = self.bn(self.conv(x), groups)
         return torch.relu(y) if self.relu else y
+
+
+def use_generator(model, generator):
+    """Draw every ``ChannelDropout`` mask of ``model`` from ``generator``
+    (a ``torch.Generator`` on the model's device)."""
+    for m in model.modules():
+        if isinstance(m, ChannelDropout):
+            m.generator = generator

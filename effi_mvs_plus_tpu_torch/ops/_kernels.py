@@ -26,7 +26,8 @@ import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
-SOURCES = ("warp_correlate.cu", "conv_gru.cu")
+SOURCES = ("warp_correlate.cu", "warp_correlate_bwd.cu", "conv_gru.cu")
+HEADERS = ("warp_project.cuh",)
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC")
@@ -39,6 +40,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "effi_warp_correlate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _L, _L, _L, _L, _L, _L, _I, _P],
+    "effi_warp_correlate_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P],
     "effi_conv_gru": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
@@ -52,7 +55,7 @@ def _nvcc():
 
 def _digest():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

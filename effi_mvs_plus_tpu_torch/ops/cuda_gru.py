@@ -1,9 +1,12 @@
 """One ConvGRU step (kernel K2).
 
 Port of ``effi_mvs_plus_tpu/ops/pallas_gru.py::gru_step``.  A CUDA tensor
-launches the hand-written fused kernel of ``csrc/conv_gru.cu``; a CPU
-tensor takes the plain version ``_gru_torch``, the math of
-``pallas_gru._gru_xla``:
+goes through ``_ConvGRU``, an autograd Function whose forward launches the
+hand-written fused kernel of ``csrc/conv_gru.cu`` and whose backward
+recomputes the step through the plain math under autograd, as
+``pallas_gru._gru_fused_bwd`` does: the JAX package has no backward kernel
+for the GRU, so there is none here.  A CPU tensor takes the plain version
+``_gru_torch``, the math of ``pallas_gru._gru_xla``:
 
     z, r = sigmoid(conv3x3([h, x]) + b);  q = tanh(conv3x3([r*h, x]) + b_q)
     h' = (1 - z) * h + z * q
@@ -32,8 +35,8 @@ def _gru_torch(h, x, wz, wr, wq, bz, br, bq):
     (hd, hd+xd, 3, 3), biases (hd,)."""
     hd = h.shape[-1]
     hx = torch.cat([h, x], dim=-1)
-    zr = torch.sigmoid(nn.conv2d(hx, torch.cat([wz, wr], 0),
-                                 torch.cat([bz, br]), padding=1))
+    zr = nn.sigmoid(nn.conv2d(hx, torch.cat([wz, wr], 0),
+                              torch.cat([bz, br]), padding=1))
     z, r = zr[..., :hd], zr[..., hd:]
     q = torch.tanh(nn.conv2d(torch.cat([r * h, x], dim=-1), wq, bq,
                              padding=1))
@@ -83,6 +86,23 @@ def _gru_cuda(h, x, wz, wr, wq, bz, br, bq):
     return out
 
 
+class _ConvGRU(torch.autograd.Function):
+    """K2 forward; the backward reruns the three convolutions of the
+    plain version and differentiates them."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _gru_cuda(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = [a.detach().requires_grad_() for a in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = _gru_torch(*args)
+        return torch.autograd.grad(out, args, g)
+
+
 def gru_step(h, x, p):
     """ConvGRU step.  h (B,H,W,hd), x (B,H,W,xd); ``p`` holds ``convz``,
     ``convr`` and ``convq``, each with ``weight`` (hd, hd+xd, 3, 3) and
@@ -90,7 +110,7 @@ def gru_step(h, x, p):
     args = (h, x, p.convz.weight, p.convr.weight, p.convq.weight,
             p.convz.bias, p.convr.bias, p.convq.bias)
     if h.device.type == "cuda":
-        return _gru_cuda(*args)
+        return _ConvGRU.apply(*args)
     if h.device.type != "cpu":
         raise ValueError(f"unsupported device {h.device}")
     return _gru_torch(*args)

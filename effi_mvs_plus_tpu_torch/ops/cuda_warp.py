@@ -1,10 +1,17 @@
-"""Plane-sweep warp + correlation over all source views (kernel K1).
+"""Plane-sweep warp + correlation over all source views (kernel K1) and
+its backward (kernel K3).
 
-Port of ``effi_mvs_plus_tpu/ops/pallas_warp.py::warp_correlate_views_fused``.
-A CUDA tensor launches the hand-written kernel of
-``csrc/warp_correlate.cu``; a CPU tensor takes the plain version
-``_views_torch`` (the counterpart of ``pallas_warp._views_xla``).  Either
-way the result is cast to the features' dtype, as on the TPU path.
+Port of ``effi_mvs_plus_tpu/ops/pallas_warp.py::warp_correlate_views_fused``
+and its custom VJP.  A CUDA tensor goes through ``_WarpCorrelate``, an
+autograd Function whose forward launches the hand-written kernel of
+``csrc/warp_correlate.cu`` and whose backward launches that of
+``csrc/warp_correlate_bwd.cu``; a CPU tensor takes the plain version
+``_views_torch`` (the counterpart of ``pallas_warp._views_xla``), which
+autograd differentiates as ``jax.vjp(_views_xla)`` does.  Either way the
+result is cast to the features' dtype, as on the TPU path.  Gradients flow
+to the ref and source features only: rotations, translations and depths
+get none (``_views_bwd`` returns None for them), and the depths that reach
+the warp are already detached.
 
 The TPU kernel copies a static window of the source map into VMEM and so
 drops taps that fall outside it; its region window, rung ladder, fit
@@ -19,9 +26,11 @@ import torch
 
 from effi_mvs_plus_tpu_torch.ops import _kernels, warp
 
-# Launches of the CUDA kernel in this process (the wrapper adds one per
-# launch; nothing else touches it but a caller that resets it to 0).
+# Launches of the CUDA kernels in this process, forward (K1) and backward
+# (K3) (each wrapper adds one per launch; nothing else touches them but a
+# caller that resets them to 0).
 launches = 0
+bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CHANNELS = (8, 16, 32)
@@ -52,8 +61,9 @@ def _check_aligned(name, t, inner):
         raise ValueError(f"{name}: must be 16-byte aligned per batch item")
 
 
-def _views_cuda(ref_fea, src_feas, rots, transs, depth):
-    global launches
+def _check_inputs(ref_fea, src_feas, rots, transs, depth):
+    """Raise on what the kernels do not take; returns rots and transs as
+    the contiguous fp32 tensors the kernels read."""
     B, H, W, C = ref_fea.shape
     V = src_feas.shape[1]
     D = depth.shape[1]
@@ -77,8 +87,16 @@ def _views_cuda(ref_fea, src_feas, rots, transs, depth):
             raise ValueError(f"{name} is on {t.device}, ref_fea on {dev}")
     _check_aligned("ref_fea", ref_fea, 3)
     _check_aligned("src_feas", src_feas, 4)
-    rots = rots.to(torch.float32).contiguous()
-    transs = transs.to(torch.float32).contiguous()
+    return (rots.to(torch.float32).contiguous(),
+            transs.to(torch.float32).contiguous())
+
+
+def _views_cuda(ref_fea, src_feas, rots, transs, depth):
+    global launches
+    rots, transs = _check_inputs(ref_fea, src_feas, rots, transs, depth)
+    B, H, W, C = ref_fea.shape
+    V, D = src_feas.shape[1], depth.shape[1]
+    dev = ref_fea.device
     out = torch.empty((B, V, D, H, W), dtype=ref_fea.dtype, device=dev)
     lib = _kernels.library()
     with torch.cuda.device(dev):
@@ -92,6 +110,48 @@ def _views_cuda(ref_fea, src_feas, rots, transs, depth):
     return out
 
 
+def _views_bwd_cuda(ref_fea, src_feas, rots, transs, depth, g):
+    """K3: (d_ref (B,H,W,C), d_src (B,V,H,W,C)) in the features' dtype for
+    the cotangent g (B,V,D,H,W) of ``_views_cuda``'s output."""
+    global bwd_launches
+    rots, transs = _check_inputs(ref_fea, src_feas, rots, transs, depth)
+    B, H, W, C = ref_fea.shape
+    V, D = src_feas.shape[1], depth.shape[1]
+    dev = ref_fea.device
+    if tuple(g.shape) != (B, V, D, H, W) or g.device != dev:
+        raise ValueError(f"cotangent {tuple(g.shape)} on {g.device} does not "
+                         f"match the output ({B},{V},{D},{H},{W}) on {dev}")
+    g = g.to(ref_fea.dtype).contiguous()
+    d_ref = torch.empty((B, H, W, C), dtype=ref_fea.dtype, device=dev)
+    d_src = torch.zeros((B, V, H, W, C), dtype=torch.float32, device=dev)
+    lib = _kernels.library()
+    with torch.cuda.device(dev):
+        status = lib.effi_warp_correlate_bwd(
+            ref_fea.data_ptr(), src_feas.data_ptr(), rots.data_ptr(),
+            transs.data_ptr(), depth.data_ptr(), g.data_ptr(),
+            d_ref.data_ptr(), d_src.data_ptr(), B, V, D, H, W, C,
+            ref_fea.stride(0), src_feas.stride(0), *depth.stride(),
+            _DTYPES[ref_fea.dtype], _kernels.stream_of(d_ref))
+    _kernels.check(status, "warp_correlate_bwd")
+    bwd_launches += 1
+    return d_ref, d_src.to(src_feas.dtype)
+
+
+class _WarpCorrelate(torch.autograd.Function):
+    """K1 forward, K3 backward.  The saved depth is the caller's tensor as
+    it is: the stage-1 sweep stays an expanded view."""
+
+    @staticmethod
+    def forward(ctx, ref_fea, src_feas, rots, transs, depth):
+        ctx.save_for_backward(ref_fea, src_feas, rots, transs, depth)
+        return _views_cuda(ref_fea, src_feas, rots, transs, depth)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_ref, d_src = _views_bwd_cuda(*ctx.saved_tensors, g)
+        return d_ref, d_src, None, None, None
+
+
 def warp_correlate_views(ref_fea, src_feas, rots, transs, depth):
     """Correlation of the ref features with every source view warped to
     each depth hypothesis (G=1).
@@ -102,7 +162,7 @@ def warp_correlate_views(ref_fea, src_feas, rots, transs, depth):
     sweep); the kernel reads it through its strides.
     """
     if ref_fea.device.type == "cuda":
-        return _views_cuda(ref_fea, src_feas, rots, transs, depth)
+        return _WarpCorrelate.apply(ref_fea, src_feas, rots, transs, depth)
     if ref_fea.device.type != "cpu":
         raise ValueError(f"unsupported device {ref_fea.device}")
     return _views_torch(ref_fea, src_feas, rots, transs,

@@ -32,6 +32,7 @@ import chip_smoke  # noqa: E402  (the DTU rig and config)
 
 # kernel-name markers of each class, tested in this order
 CLASSES = (
+    ("k3_warp_correlate_bwd", ("warp_correlate_bwd_kernel",)),
     ("k1_warp_correlate", ("warp_correlate_kernel",)),
     ("k2_conv_gru", ("conv_gru_kernel",)),
     ("memcpy_memset", ("Memcpy", "Memset")),

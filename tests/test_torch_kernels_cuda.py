@@ -1,7 +1,9 @@
-"""The port's CUDA kernels against their plain versions on the card, at
-small shapes.  Marked ``cuda``: without a GPU every test skips.  On a GPU
-machine: ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
-This file imports no JAX, so it runs where only PyTorch is installed."""
+"""The port's CUDA kernels (K1, K2 and K3, the warp's backward) against
+their plain versions on the card, at small shapes.  Marked ``cuda``:
+without a GPU every test skips.  On a GPU machine:
+``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
+(tests/conftest.py imports JAX).  This file imports no JAX, so it runs
+where only PyTorch is installed."""
 
 import pytest
 import torch
@@ -50,6 +52,40 @@ def test_warp_kernel_matches_plain(gpu, C, dtype):
     assert ((got.float() - want).abs() <= tol).all()
 
 
+def _bwd_plain(ref, src, rots, trs, depth, g):
+    """Autograd of the plain version, in fp32 on the same values."""
+    r = ref.float().requires_grad_()
+    s = src.float().requires_grad_()
+    cuda_warp._views_torch(r, s, rots, trs, depth).backward(g.float())
+    return r.grad, s.grad
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_bwd_kernel_matches_plain(gpu, C, dtype):
+    g_ = torch.Generator(device=gpu).manual_seed(2)
+    B, V, D, H, W = 2, 3, 5, 20, 36
+    feats = torch.randn((B, V + 1, H, W, C), generator=g_, device=gpu)
+    feats = feats.to(dtype)
+    ref = feats[:, 0].clone().requires_grad_()
+    src = feats[:, 1:].clone().requires_grad_()
+    rots, trs = _rig(B, V, gpu)
+    # an expanded sweep, read through its strides as the model hands it
+    depth = torch.linspace(400.0, 900.0, D, device=gpu)[None, :, None, None] \
+        .expand(B, D, H, W)
+    g = torch.randn((B, V, D, H, W), generator=g_, device=gpu).to(dtype)
+    n, nb = cuda_warp.launches, cuda_warp.bwd_launches
+    cuda_warp.warp_correlate_views(ref, src, rots, trs, depth).backward(g)
+    assert (cuda_warp.launches, cuda_warp.bwd_launches) == (n + 1, nb + 1)
+    want = _bwd_plain(ref.detach(), src.detach(), rots, trs, depth, g)
+    torch.cuda.synchronize()
+    for got, w in zip((ref.grad, src.grad), want):
+        assert got.dtype == dtype and got.shape == w.shape
+        tol = 1e-4 * max(1.0, float(w.abs().max())) \
+            + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) * w.abs()
+        assert ((got.float() - w).abs() <= tol).all()
+
+
 @pytest.mark.parametrize("hd", [16, 32, 48])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gru_kernel_matches_plain(gpu, hd, dtype):
@@ -73,6 +109,26 @@ def test_gru_kernel_matches_plain(gpu, hd, dtype):
     assert cuda_gru.launches == n + 1
     tol = 1e-4 + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) * want.abs()
     assert ((got.float() - want).abs() <= tol).all()
+
+
+def test_gru_function_backward_matches_plain(gpu):
+    g_ = torch.Generator(device=gpu).manual_seed(3)
+    B, H, W, hd = 2, 11, 21, 32
+    h = torch.tanh(torch.randn((B, H, W, hd), generator=g_, device=gpu))
+    x = torch.randn((B, H, W, hd), generator=g_, device=gpu)
+    g = torch.randn((B, H, W, hd), generator=g_, device=gpu)
+    gru = ConvGRU(hd, hd).to(gpu)
+    grads = []
+    for step in (cuda_gru.gru_step, lambda a, b, p: cuda_gru._gru_torch(
+            a, b, p.convz.weight, p.convr.weight, p.convq.weight,
+            p.convz.bias, p.convr.bias, p.convq.bias)):
+        gru.zero_grad()
+        hh, xx = h.clone().requires_grad_(), x.clone().requires_grad_()
+        step(hh, xx, gru).backward(g)
+        grads.append([hh.grad, xx.grad] + [p.grad.clone()
+                                           for p in gru.parameters()])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max() <= 1e-4 * max(1.0, float(b.abs().max()))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gpu):
