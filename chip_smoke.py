@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Quickest proof that the PyTorch/CUDA port runs on a GPU, serving and
-training.
+"""Quickest proof that the PyTorch/CUDA port runs on a GPU: serving,
+training and the Tanks & Temples reconstruction chain.
 
     python3 chip_smoke.py
 
@@ -22,17 +22,32 @@ imports nothing of JAX.  It
 3. drives the serving path: ``InferenceEngine(device="cuda")`` with the
    shipped DTU weights at the DTU eval config answers fp32 and bf16
    requests and writes a scene with ``save_scene_depths``, with the
-   kernels' launch counts reset just before and read just after; one fp32
-   request's 13 depth maps and confidence are held against the same
-   forward with the plain versions in place of the kernels;
-4. drives the training path: ``train/trainer.py``'s step at the DTU
+   kernels' launch counts (K1, K2 and K4) reset just before and read just
+   after; one fp32 request's 13 depth maps and confidence are held
+   against the same forward with the plain versions in place of the
+   kernels;
+   and K4 (the fused 3x3 conv + folded BN + ReLU chain of the FPN stem)
+   at every chain of both FPNs at the T&T and DTU eval configs, fp32 and
+   bf16, on the inputs an inference forward hands it, against its plain
+   version, with the unfused cuDNN chain's time beside it;
+4. times the DTU eval forward with the fused stem (inference mode) and
+   with the unfused blocks (grad mode, parameters frozen), fp32 and bf16,
+   in turns;
+5. drives the training path: ``train/trainer.py``'s step at the DTU
    training config, fp32, from ``checkpoints/model_dtu.npz``, on seeded
    noise images and plane ground truth through the port's ``Loader``.
    One step's loss and gradients are held against the same step with the
    plain versions, and the step with the kernels is run twice to show the
    run-to-run spread; then timed steps, each launching 3 K1, 3 K3 and 9
    K2, with samples/s and peak memory;
-5. prints a ``{"kernels": [...]}`` line, then the device line last.
+6. drives the T&T reconstruction path: renders a textured plane at 1.6 m
+   on an 11-view rig at 1920x1056 (focal 1.16 W, band 0.4-3.5 m), runs
+   ``cli/test_tank.py``'s ``save_depths`` (``TanksDataset`` -> ``Loader``
+   -> ``InferenceEngine(device="cuda")`` with ``model_tank.npz``, 96/8/8,
+   bf16) and ``fuse_scene_tank`` (the deployed Horse filter) into a PLY, scores it against the plane with ``eval/dtu.py``,
+   and holds one fp32 forward with every kernel against one with every
+   plain version;
+7. prints a ``{"kernels": [...]}`` line, then the device line last.
 
 Any failure raises and the exit code is nonzero.  Without a GPU it exits
 1 and prints no result.
@@ -55,8 +70,9 @@ MEM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 # |kernel - plain| <= ATOL[kernel] * scale + RTOL[dtype] * |plain|,
-# elementwise (see check_kernel)
-ATOL = {"warp_correlate": 1e-3, "conv_gru": 1e-4, "warp_correlate_bwd": 1e-3}
+# elementwise (see check_kernel; K4: check_chain)
+ATOL = {"warp_correlate": 1e-3, "conv_gru": 1e-4, "warp_correlate_bwd": 1e-3,
+        "conv_chain": 5e-5}
 RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 SEED = 0
 
@@ -78,6 +94,13 @@ ND = 384                      # inverse-depth samples per batch item
 HDIM = (48, 32, 16)
 CDIM = (32, 16, 8)            # feature channels per stage
 RATIO = (4.0, 2.0, 1.0)       # depth_intervals_ratio
+# the T&T reconstruction rig (E2E_TANK_r05.json's point): plane, band,
+# focal multiple, baseline and ground-truth spacing, in metres / mm
+TANK = dict(H=1056, W=1920, V=11, plane_z=1.6, band=(0.4, 3.5),
+            focal_mult=1.16, baseline=0.04, gt_spacing_mm=4.0)
+TANK_SPACING_MM = (TANK["plane_z"] ** 2 * (1 / TANK["band"][0]
+                                           - 1 / TANK["band"][1])
+                   / 95 * 1000.0)   # stage-1 hypothesis spacing at the plane
 
 
 def log(obj):
@@ -212,11 +235,28 @@ def check_kernel(kernel, what, got, want, dtype, scale=1.0):
     return float(diff.max())
 
 
+def check_depth_maps(what, out_k, out_p, floor):
+    """The 13 depth maps of a forward with the kernels against one with the
+    plain versions, at the golden tolerance (tests/test_model_golden.py):
+    max error under 0.5% of the map's range plus `floor` (0.5 mm in the
+    depth's unit).  Returns (worst max error, worst error / tolerance)."""
+    worst = ratio = 0.0
+    for i, (g, want) in enumerate(zip(out_k["depth"], out_p["depth"])):
+        tol = 0.005 * float(want.max() - want.min()) + floor
+        err = float((g - want).abs().max())
+        worst, ratio = max(worst, err), max(ratio, err / tol)
+        if not err < tol:
+            raise AssertionError(f"{what} depth {i}: kernels vs plain "
+                                 f"{err:.3e} (tolerance {tol:.3e})")
+    return worst, ratio
+
+
 @contextlib.contextmanager
-def plain_kernels(cuda_warp, cuda_gru):
-    """Route the model's two kernel calls to their plain versions (for the
-    full-forward comparison only)."""
-    saved = cuda_warp.warp_correlate_views, cuda_gru.gru_step
+def plain_kernels(cuda_warp, cuda_gru, cuda_conv):
+    """Route the model's kernel calls to their plain versions (for the
+    full-forward comparisons only)."""
+    saved = (cuda_warp.warp_correlate_views, cuda_gru.gru_step,
+             cuda_conv.conv_bn_relu_chain)
 
     def warp_plain(ref, src, rots, trs, depth):
         return cuda_warp._views_torch(ref, src, rots, trs, depth).to(ref.dtype)
@@ -225,11 +265,14 @@ def plain_kernels(cuda_warp, cuda_gru):
         return cuda_gru._gru_torch(h, x, p.convz.weight, p.convr.weight,
                                    p.convq.weight, p.convz.bias,
                                    p.convr.bias, p.convq.bias)
-    cuda_warp.warp_correlate_views, cuda_gru.gru_step = warp_plain, gru_plain
+    (cuda_warp.warp_correlate_views, cuda_gru.gru_step,
+     cuda_conv.conv_bn_relu_chain) = (warp_plain, gru_plain,
+                                      cuda_conv._chain_torch)
     try:
         yield
     finally:
-        cuda_warp.warp_correlate_views, cuda_gru.gru_step = saved
+        (cuda_warp.warp_correlate_views, cuda_gru.gru_step,
+         cuda_conv.conv_bn_relu_chain) = saved
 
 
 def main():
@@ -268,26 +311,35 @@ def run(torch, card):
     with torch.inference_mode():
         entries = forward_kernel_phases(torch, sd, gen)
     entries += bwd_kernel_phases(torch, gen)
+    with torch.inference_mode():
+        chain_entries = conv_chain_phases(torch, root, gen)
     torch.cuda.empty_cache()
 
-    # ---- 3. serving path ----
+    # ---- 3. serving path, and the DTU forward with and without K4 ----
     with torch.inference_mode():
-        k1_main, k2_main = serving_path(torch, sd)
+        k1_main, k2_main, k4_main = serving_path(torch, sd)
+    stem_ab(torch, sd)
     torch.cuda.empty_cache()
 
     # ---- 4. training path ----
     train = training_path(torch, sd)
+    torch.cuda.empty_cache()
+
+    # ---- 5. T&T reconstruction path ----
+    tank = tank_path(torch, root)
 
     for e in entries:
         if e["name"] == "warp_correlate_bwd":
             e["launches"] = train["k3_launches"]
-        else:
-            e["launches"] = k1_main if e["name"] == "warp_correlate" \
-                else k2_main
-            e["launches_train"] = train["k1_launches" if e["name"]
-                                        == "warp_correlate" else
-                                        "k2_launches"]
-    print(json.dumps({"kernels": entries}), flush=True)
+            continue
+        k1 = e["name"] == "warp_correlate"
+        e["launches"] = k1_main if k1 else k2_main
+        e["launches_train"] = train["k1_launches" if k1 else "k2_launches"]
+        e["launches_tnt"] = tank["k1_launches" if k1 else "k2_launches"]
+    for e in chain_entries:
+        e["launches"] = k4_main
+        e["launches_tnt"] = tank["k4_launches"]
+    print(json.dumps({"kernels": entries + chain_entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -413,53 +465,66 @@ def forward_kernel_phases(torch, sd, gen):
     return entries
 
 
-def serving_path(torch, sd):
-    """The engine at the DTU eval config, fp32 and bf16; returns the K1
-    and K2 launch counts of the run."""
-    from effi_mvs_plus_tpu_torch.data import cams as camio
-    from effi_mvs_plus_tpu_torch.data.pfm import read_pfm
-    from effi_mvs_plus_tpu_torch.infer import InferenceEngine
-    from effi_mvs_plus_tpu_torch.models import EffiMVSConfig
-    from effi_mvs_plus_tpu_torch.ops import cuda_gru, cuda_warp
-
+def dtu_batch(camio):
+    """One DTU eval request (B=6, 5 views, 1152x864): seeded noise images
+    on the seeded rig, in the loader's layout."""
     cfg = CONFIGS["dtu"]
     B = cfg["B"]
     proj_ms, dv = rig(cfg, camio)
     rng = np.random.default_rng(SEED)
     imgs = rng.uniform(0, 1, (B, cfg["V"], cfg["H"], cfg["W"], 3)).astype(
         np.float32)
-    batch = {"imgs": imgs, "proj_matrices": proj_ms, "depth_values": dv,
-             "filename": [f"scan1/{{}}/{b:08d}{{}}" for b in range(B)]}
+    return {"imgs": imgs, "proj_matrices": proj_ms, "depth_values": dv,
+            "filename": [f"scan1/{{}}/{b:08d}{{}}" for b in range(B)]}
+
+
+def timed_request(torch, eng, batch):
+    """(device ms, depth, conf) of one engine request, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    depth, conf = eng._infer_device(batch)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end), depth, conf
+
+
+def serving_path(torch, sd):
+    """The engine at the DTU eval config, fp32 and bf16; returns the K1,
+    K2 and K4 launch counts of the run."""
+    from effi_mvs_plus_tpu_torch.data import cams as camio
+    from effi_mvs_plus_tpu_torch.data.pfm import read_pfm
+    from effi_mvs_plus_tpu_torch.infer import InferenceEngine
+    from effi_mvs_plus_tpu_torch.models import EffiMVSConfig
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
+
+    cfg = CONFIGS["dtu"]
+    B = cfg["B"]
+    batch = dtu_batch(camio)
+    imgs, proj_ms, dv = (batch[k] for k in ("imgs", "proj_matrices",
+                                            "depth_values"))
     eng32 = InferenceEngine(sd, EffiMVSConfig(), device="cuda")
     eng16 = InferenceEngine(sd, EffiMVSConfig(compute_dtype=torch.bfloat16),
                             device="cuda")
 
-    def request_ms(eng):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        depth, conf = eng._infer_device(batch)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end), depth, conf
+    def counts():
+        return cuda_warp.launches, cuda_gru.launches, cuda_conv.launches
 
-    cuda_warp.launches = 0
-    cuda_gru.launches = 0
+    cuda_warp.launches = cuda_gru.launches = cuda_conv.launches = 0
     forwards = 0
     t32 = []
     for i in range(4):
-        ms, d32, c32 = request_ms(eng32)
+        ms, d32, c32 = timed_request(torch, eng32, batch)
         forwards += 1
-        if (cuda_warp.launches, cuda_gru.launches) != (3 * forwards,
-                                                       9 * forwards):
+        if counts() != (3 * forwards, 9 * forwards, 8 * forwards):
             raise AssertionError(
-                f"after {forwards} forwards: K1 {cuda_warp.launches}, "
-                f"K2 {cuda_gru.launches} launches (want 3 and 9 each)")
+                f"after {forwards} forwards: K1, K2, K4 launched "
+                f"{counts()} times (want 3, 9 and 8 each)")
         if i:
             t32.append(ms)
     t16 = []
     for i in range(3):
-        ms, d16, c16 = request_ms(eng16)
+        ms, d16, c16 = timed_request(torch, eng16, batch)
         forwards += 1
         if i:
             t16.append(ms)
@@ -476,10 +541,11 @@ def serving_path(torch, sd):
                     raise AssertionError(f"{kind} {b}: {arr.shape}")
             camio.read_cam_file(os.path.join(out, "scan1", "cams",
                                              f"{b:08d}_cam.txt"))
-    k1_main, k2_main = cuda_warp.launches, cuda_gru.launches
-    if (k1_main, k2_main) != (3 * forwards, 9 * forwards) or not k1_main:
-        raise AssertionError(f"main path: {forwards} forwards, K1 "
-                             f"{k1_main}, K2 {k2_main} launches")
+    k1_main, k2_main, k4_main = counts()
+    if (k1_main, k2_main, k4_main) != (3 * forwards, 9 * forwards,
+                                       8 * forwards) or not k1_main:
+        raise AssertionError(f"main path: {forwards} forwards, K1, K2, K4 "
+                             f"launched {counts()} times")
 
     d32, c32 = d32.cpu().numpy(), c32.cpu().numpy()
     d16, c16 = d16.cpu().numpy(), c16.cpu().numpy()
@@ -504,19 +570,12 @@ def serving_path(torch, sd):
             torch.from_numpy(dv).cuda())
     with torch.inference_mode():
         out_k = model(*args)
-        n1, n2 = cuda_warp.launches, cuda_gru.launches
-        with plain_kernels(cuda_warp, cuda_gru):
+        n = counts()
+        with plain_kernels(cuda_warp, cuda_gru, cuda_conv):
             out_p = model(*args)
-        if (cuda_warp.launches, cuda_gru.launches) != (n1, n2):
+        if counts() != n:
             raise AssertionError("the plain forward launched a kernel")
-    worst = 0.0
-    for i, (g, want) in enumerate(zip(out_k["depth"], out_p["depth"])):
-        scale = float(want.max() - want.min()) + 1e-6
-        err = float((g - want).abs().max())
-        worst = max(worst, err)
-        if not err < 0.005 * scale + 0.5:
-            raise AssertionError(f"depth {i}: kernel vs plain {err:.4f} "
-                                 f"(range {scale:.1f})")
+    worst, _ = check_depth_maps("DTU", out_k, out_p, 0.5)
     # the confidence reads a 4-bin window at int(expected index): a pixel
     # whose expectation sits within rounding of an integer may take the
     # neighbouring window in one of the two runs, so a handful of the
@@ -533,7 +592,7 @@ def serving_path(torch, sd):
     log({"phase": "serving_path", "config": "dtu B6 V5 1152x864 48/8/8",
          "weights": "checkpoints/model_dtu.npz", "forwards": forwards,
          "k1_launches": k1_main, "k2_launches": k2_main,
-         "fp32_request_ms": t32, "bf16_request_ms": t16,
+         "k4_launches": k4_main, "fp32_request_ms": t32, "bf16_request_ms": t16,
          "fp32_maps_per_s": B / (ms32 / 1e3),
          "bf16_maps_per_s": B / (ms16 / 1e3),
          "save_scene_depths": stats,
@@ -543,7 +602,7 @@ def serving_path(torch, sd):
          "bf16_vs_fp32_median_depth_abs": float(np.median(np.abs(d16 - d32))),
          "depth_range_mm": [lo, hi],
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
-    return k1_main, k2_main
+    return k1_main, k2_main, k4_main
 
 
 def plain_bwd(torch, cuda_warp, ref, src, rots, trs, depth):
@@ -728,7 +787,7 @@ def training_path(torch, sd):
     from effi_mvs_plus_tpu_torch.data import cams as camio
     from effi_mvs_plus_tpu_torch.data.loader import Loader
     from effi_mvs_plus_tpu_torch.models import EffiMVS, EffiMVSConfig
-    from effi_mvs_plus_tpu_torch.ops import cuda_gru, cuda_warp
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
     from effi_mvs_plus_tpu_torch.train import trainer as T
     from effi_mvs_plus_tpu_torch.train.loss import mvs_loss
     from effi_mvs_plus_tpu_torch.train.optim import make_optimizer
@@ -771,7 +830,7 @@ def training_path(torch, sd):
     if counts() != (3, 3, 9):
         raise AssertionError(f"one step launched K1, K3, K2 {counts()} "
                              f"times, not 3, 3, 9")
-    with plain_kernels(cuda_warp, cuda_gru):
+    with plain_kernels(cuda_warp, cuda_gru, cuda_conv):
         loss_p, grads_p = loss_and_grads()
     if counts() != (3, 3, 9):
         raise AssertionError("the plain step launched a kernel")
@@ -834,6 +893,397 @@ def training_path(torch, sd):
          "k2_launches": k2,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     return {"k1_launches": k1, "k2_launches": k2, "k3_launches": k3}
+
+
+def check_chain(what, got, want, dtype, layers):
+    """Hold K4 against its plain version, elementwise:
+    |kernel - plain| <= (5e-5 + layers * 2^-8 [bf16]) * max(|plain|, 1).
+
+    fp32: the same fp32 sums (9*Ci products a layer) in another order; 5e-5
+    is the JAX package's bound for its fused chain against XLA
+    (tests/test_pallas_conv.py:29), taken relative to the values, which
+    reach tens in the deeper levels.  bf16: each layer's output is rounded
+    to bf16 (2^-8 relative) in both, and a value that rounds the other way
+    in one layer moves the next by as much.  Returns the max abs error."""
+    got, want = got.float(), want.float()
+    rel = ATOL["conv_chain"] + layers * RTOL[dtype]
+    diff = (got - want).abs()
+    excess = float((diff - rel * want.abs().clamp(min=1.0)).max())
+    if not excess <= 0:
+        raise AssertionError(
+            f"conv_chain {what}: kernel differs from plain beyond {rel:.3g} "
+            f"max(|plain|, 1) (by {excess:.3e}, max abs "
+            f"{float(diff.max()):.3e})")
+    return float(diff.max())
+
+
+# the stem chains in the order a forward launches them
+CHAIN_NAMES = tuple(f"{net} conv{i}" for net in ("feature", "cnet")
+                    for i in range(4))
+
+
+def record_chains(model, imgs):
+    """Both FPNs of an eval model on imgs (B,V,H,W,3), as an inference
+    forward runs them; returns [(name, input, folded layers, the ConvBlocks the
+    chain stands for)] for each K4 launch."""
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv
+    calls = []
+    real = cuda_conv.conv_bn_relu_chain
+
+    def record(x, specs):
+        calls.append((x, specs))
+        return real(x, specs)
+    cuda_conv.conv_bn_relu_chain = record
+    try:
+        B, V, H, W, _ = imgs.shape
+        model.feature(imgs.reshape(B * V, H, W, 3))
+        model.cnet_depth(imgs[:, 0])
+    finally:
+        cuda_conv.conv_bn_relu_chain = real
+    blocks = [list(getattr(net, f"conv{i}"))[min(i, 1):]
+              for net in (model.feature, model.cnet_depth) for i in range(4)]
+    if len(calls) != len(CHAIN_NAMES):
+        raise AssertionError(f"the fused FPNs launched {len(calls)} chains")
+    return [(n, x, specs, b)
+            for n, (x, specs), b in zip(CHAIN_NAMES, calls, blocks)]
+
+
+def conv_chain_phases(torch, root, gen):
+    """K4 against its plain version at every chain of both FPNs at the T&T
+    and DTU eval configs (fp32 and bf16), on the inputs and folded
+    checkpoint weights an inference forward hands it; library_ms is the
+    unfused cuDNN chain (conv + BN + ReLU a layer) the model runs in its
+    place when grad is on."""
+    from effi_mvs_plus_tpu_torch.io import load_npz_checkpoint
+    from effi_mvs_plus_tpu_torch.models import EffiMVSConfig, build_model
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv
+
+    entries = []
+    for cname, ckpt in (("tnt", "model_tank.npz"), ("dtu", "model_dtu.npz")):
+        cfg = CONFIGS[cname]
+        model = build_model(
+            load_npz_checkpoint(os.path.join(root, "checkpoints", ckpt)),
+            EffiMVSConfig(ndepths=cfg["ndepths"]), device="cuda")
+        imgs = torch.rand((cfg["B"], cfg["V"], cfg["H"], cfg["W"], 3),
+                          generator=gen, device="cuda")
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            for name, x, specs, blocks in record_chains(model,
+                                                        imgs.to(dtype)):
+                def k4():
+                    return cuda_conv.conv_bn_relu_chain(x, specs)
+
+                def plain():
+                    return cuda_conv._chain_torch(x, specs)
+
+                def cudnn():
+                    y = x
+                    for blk in blocks:
+                        y = blk(y)
+                    return y
+                err = check_chain(f"{cname} {name} {dname}", k4(), plain(),
+                                  dname, len(specs))
+                chans = (x.shape[-1],) + tuple(w.shape[0] for w, _ in specs)
+                npx = x.shape[0] * x.shape[1] * x.shape[2]
+                flops = 18 * npx * sum(a * b for a, b in zip(chans[:-1],
+                                                             chans[1:]))
+                byts = npx * (chans[0] + chans[-1]) * x.element_size() \
+                    + sum((w.numel() + b.numel()) * 4 for w, b in specs)
+                bms, bby = bound(byts, flops, dname)
+                ms = median_ms(torch, k4, 5)
+                entries.append(dict(
+                    name="conv_chain", route="cuda",
+                    source="effi_mvs_plus_tpu_torch/csrc/conv_chain.cu",
+                    replaces="effi_mvs_plus_tpu/ops/pallas_conv.py:78",
+                    config=cname, chain=name, dtype=dname,
+                    shape=f"B{x.shape[0]} {x.shape[1]}x{x.shape[2]} "
+                          + "-".join(map(str, chans)),
+                    launches_per_forward=len(CHAIN_NAMES),
+                    max_abs_err=err, ms=ms,
+                    plain_ms=median_ms(torch, plain, 3),
+                    bound_ms=bms, bound_by=bby, share_of_bound=bms / ms,
+                    library_ms=median_ms(torch, cudnn, 3)))
+                log({"phase": "kernels", **entries[-1]})
+        del model, imgs
+        torch.cuda.empty_cache()
+    return entries
+
+
+def stem_ab(torch, sd):
+    """The DTU eval forward (B=6, on the card's copy of the request) with
+    the fused stem, under inference mode as the engine serves it, and with
+    the unfused conv + BN + ReLU blocks, which the FPN takes when grad is
+    on (the parameters frozen, so nothing is recorded); fp32 and bf16,
+    timed in turns (off on on off off on, after a warm-up of each)."""
+    from effi_mvs_plus_tpu_torch.data import cams as camio
+    from effi_mvs_plus_tpu_torch.models import EffiMVSConfig, build_model
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv
+
+    batch = dtu_batch(camio)
+    args = (torch.from_numpy(batch["imgs"]).cuda(),
+            {k: torch.from_numpy(batch["proj_matrices"][k]).cuda()
+             for k in ("stage1", "stage2", "stage3")},
+            torch.from_numpy(batch["depth_values"]).cuda())
+    out = {"phase": "dtu_fused_stem", "config": "dtu B6 V5 1152x864 48/8/8"}
+    for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model = build_model(sd, EffiMVSConfig(compute_dtype=dtype),
+                            device="cuda").requires_grad_(False)
+
+        def forward(on):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            n = cuda_conv.launches
+            with torch.inference_mode() if on else torch.enable_grad():
+                start.record()
+                depth = model(*args)["depth"][-1]
+                end.record()
+            end.synchronize()
+            if cuda_conv.launches - n != (len(CHAIN_NAMES) if on else 0):
+                raise AssertionError(f"fused stem {on}: "
+                                     f"{cuda_conv.launches - n} K4 launches")
+            return start.elapsed_time(end), depth
+
+        times, depth = {False: [], True: []}, {}
+        for on in (False, True):
+            forward(on)
+        for on in (False, True, True, False, False, True):
+            ms, depth[on] = forward(on)
+            times[on].append(ms)
+        diff = (depth[True] - depth[False]).abs()
+        out[dname] = {
+            "forward_ms_off": times[False], "forward_ms_on": times[True],
+            "maps_per_s_off": 6e3 / statistics.median(times[False]),
+            "maps_per_s_on": 6e3 / statistics.median(times[True]),
+            "on_vs_off_median_depth_abs": float(diff.median()),
+            "on_vs_off_max_depth_abs": float(diff.max())}
+    log(out)
+
+
+def make_texture(rng, size=512):
+    """Multi-octave noise texture (tests/synth_scene.py's recipe)."""
+    tex = np.zeros((size, size, 3))
+    for cells in (size, size // 4, size // 16, size // 64):
+        oct_ = rng.uniform(0, 1, (cells, cells, 3))
+        reps = size // cells
+        tex += np.repeat(np.repeat(oct_, reps, 0), reps, 1)
+    tex -= tex.min()
+    return tex / tex.max()
+
+
+def look_at_extrinsic(cam_center, target):
+    """World->cam extrinsic whose optical axis points at `target` (y-down
+    image convention, yaw/pitch only)."""
+    z = np.asarray(target, np.float64) - np.asarray(cam_center, np.float64)
+    z = z / np.linalg.norm(z)
+    x = np.cross([0.0, 1.0, 0.0], z)
+    x = x / np.linalg.norm(x)
+    y = np.cross(z, x)
+    E = np.eye(4, dtype=np.float32)
+    E[:3, :3] = np.stack([x, y, z]).astype(np.float32)
+    E[:3, 3] = (-E[:3, :3] @ np.asarray(cam_center, np.float32))
+    return E
+
+
+def render_plane(torch, K, E, H, W, z, tex, texel):
+    """The textured world plane Z = z through camera (K, E), ray-cast on
+    the card in float64 with a bilinear, wrapping texture lookup; uint8
+    (H, W, 3)."""
+    dev = tex.device
+    f64 = torch.float64
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=f64, device=dev),
+                            torch.arange(W, dtype=f64, device=dev),
+                            indexing="ij")
+    pix = torch.stack([xs, ys, torch.ones_like(xs)]).reshape(3, -1)
+    Kt = torch.as_tensor(K, dtype=f64, device=dev)
+    R = torch.as_tensor(E[:3, :3], dtype=f64, device=dev)
+    t = torch.as_tensor(E[:3, 3], dtype=f64, device=dev)
+    dirs = R.T @ (torch.linalg.inv(Kt) @ pix)
+    origin = -R.T @ t
+    pts = origin[:, None] + dirs * ((z - origin[2]) / dirs[2])
+    n = tex.shape[0]
+    u = torch.remainder(pts[0] / texel, n)
+    v = torch.remainder(pts[1] / texel, n)
+    u0, v0 = torch.floor(u), torch.floor(v)
+    fu, fv = (u - u0)[:, None], (v - v0)[:, None]
+    # a remainder of a tiny negative value rounds up to n itself
+    u0, v0 = u0.long() % n, v0.long() % n
+    u1, v1 = (u0 + 1) % n, (v0 + 1) % n
+    img = (tex[v0, u0] * (1 - fu) * (1 - fv) + tex[v0, u1] * fu * (1 - fv)
+           + tex[v1, u0] * (1 - fu) * fv + tex[v1, u1] * fu * fv)
+    return (img.reshape(H, W, 3) * 255).to(torch.uint8).cpu().numpy()
+
+
+def render_tank_scene(torch, root, camio):
+    """tests/synth_scene.build_tank_scene's rig at the TANK point, in the
+    Tanks & Temples layout <root>/intermediate/Horse/{images,cams,
+    pair.txt}: cameras on a line at z = 0, `baseline` apart, aimed at the
+    plane point in front of camera 0; 4-field cam line 11."""
+    from PIL import Image
+    H, W, V, z = TANK["H"], TANK["W"], TANK["V"], TANK["plane_z"]
+    scene_dir = os.path.join(root, "intermediate", "Horse")
+    for d in ("images", "cams"):
+        os.makedirs(os.path.join(scene_dir, d))
+    f = TANK["focal_mult"] * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    tex = torch.as_tensor(make_texture(np.random.default_rng(SEED)),
+                          device="cuda")
+    dmin, dmax = TANK["band"]
+    for v in range(V):
+        b = TANK["baseline"]
+        E = look_at_extrinsic([b * v, b / 4.0 * v, 0.0], [0.0, 0.0, z])
+        Image.fromarray(render_plane(torch, K, E, H, W, z, tex,
+                                     2.0 * z / f)).save(
+            os.path.join(scene_dir, "images", f"{v:08d}.jpg"), quality=95)
+        camio.write_cam_file(
+            os.path.join(scene_dir, "cams", f"{v:08d}_cam.txt"), E, K,
+            [dmin, (dmax - dmin) / 192.0, 192.0, dmax])
+    with open(os.path.join(scene_dir, "pair.txt"), "w") as fh:
+        fh.write(f"{V}\n")
+        for v in range(V):
+            srcs = sorted((s for s in range(V) if s != v),
+                          key=lambda s: abs(s - v))
+            fh.write(f"{v}\n{len(srcs)} "
+                     + " ".join(f"{s} 10.0" for s in srcs) + "\n")
+
+
+def score_tank_ply(path):
+    """The fused cloud (m -> mm) against the plane, as
+    tests/test_e2e_tank_accuracy.py scores it: the plane sampled over the
+    inset footprint of camera 0, a permissive voxel mask, dst 2 mm.
+    Returns (ScanResult, points scored, ground-truth points)."""
+    from effi_mvs_plus_tpu_torch.eval import dtu
+    from effi_mvs_plus_tpu_torch.fuse.ply import read_ply
+    H, W = TANK["H"], TANK["W"]
+    method = np.asarray(read_ply(path)[0], np.float64) * 1000.0
+    f = TANK["focal_mult"] * W
+    plane_mm = TANK["plane_z"] * 1000.0
+    half_x, half_y = (W / 2 - 1) / f * plane_mm, (H / 2 - 1) / f * plane_mm
+    sp, inset = TANK["gt_spacing_mm"], 30.0
+    xs = np.arange(-half_x + inset, half_x - inset, sp)
+    ys = np.arange(-half_y + inset, half_y - inset, sp)
+    gx, gy = np.meshgrid(xs, ys)
+    stl = np.stack([gx.ravel(), gy.ravel(), np.full(gx.size, plane_mm)], 1)
+    bb = np.array([[xs[0] - 100, ys[0] - 100, plane_mm - 200],
+                   [xs[-1] + 100, ys[-1] + 100, plane_mm + 200]])
+    obs = np.ones(tuple(np.ceil((bb[1] - bb[0]) / 10.0).astype(int) + 2),
+                  bool)
+    r = dtu.evaluate_scan(method, stl, obs, bb, 10.0,
+                          np.array([0.0, 0.0, 1.0, -(plane_mm - 150.0)]),
+                          dst=2.0, max_dist=100.0)
+    return r, len(method), len(stl)
+
+
+def tank_path(torch, root):
+    """The T&T reconstruction chain through the CLI's own functions, with
+    the kernel launch counts reset just before inference and read just
+    after; then the fusion, the score against the plane, and the fp32
+    in-place check.  Returns the launch counts."""
+    from effi_mvs_plus_tpu_torch.cli import test_tank
+    from effi_mvs_plus_tpu_torch.data import cams as camio
+    from effi_mvs_plus_tpu_torch.data.datasets import TanksDataset
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
+    try:
+        import PIL  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError("the T&T reader decodes JPEGs with PIL, which "
+                           "this machine lacks") from e
+
+    V = TANK["V"]
+    with tempfile.TemporaryDirectory() as work:
+        data, out = os.path.join(work, "tt"), os.path.join(work, "out")
+        t0 = time.perf_counter()
+        render_tank_scene(torch, data, camio)
+        render_s = time.perf_counter() - t0
+        args = test_tank.build_parser().parse_args([
+            "--device", "cuda", "--testpath", data,
+            "--loadckpt", os.path.join(root, "checkpoints", "model_tank.npz"),
+            "--outdir", out, "--scenes", "Horse", "--num_view", str(V),
+            "--max_h", str(TANK["H"]), "--max_w", str(TANK["W"])])
+        torch.cuda.reset_peak_memory_stats()
+        cuda_warp.launches = cuda_gru.launches = cuda_conv.launches = 0
+        stats = test_tank.save_depths(args)["Horse"]
+        counts = {"k1_launches": cuda_warp.launches,
+                  "k2_launches": cuda_gru.launches,
+                  "k4_launches": cuda_conv.launches}
+        maps = stats["maps"]
+        if maps != V or tuple(counts.values()) != (3 * maps, 9 * maps,
+                                                   8 * maps):
+            raise AssertionError(f"T&T path: {maps} maps, launches {counts}")
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the host reader's share: one request's 11 views decoded alone
+        t0 = time.perf_counter()
+        TanksDataset(data, ["Horse"], V, args.numdepth,
+                     target_wh=(TANK["W"], TANK["H"]))[0]
+        reader_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ply, n_points = test_tank.fuse_scene_tank(args, "Horse")
+        fusion_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r, n_method, n_stl = score_tank_ply(ply)
+        eval_s = time.perf_counter() - t0
+        overall = (r.acc_mean + r.comp_mean) / 2
+        if not (n_points > 500 and overall < TANK_SPACING_MM / 2):
+            raise AssertionError(f"T&T: {n_points} points, overall "
+                                 f"{overall} mm (bound "
+                                 f"{TANK_SPACING_MM / 2:.1f})")
+        log({"phase": "tank_path", "route": "files: TanksDataset decodes "
+             "the rendered JPEGs with PIL",
+             "config": f"T&T B1 V{V} {TANK['W']}x{TANK['H']} 96/8/8 bf16",
+             "weights": "checkpoints/model_tank.npz",
+             "filter": "TANK_FILTER_CONFIGS['Horse']", "maps": maps,
+             **counts, "render_s": render_s,
+             "save_depths_s": stats["total_s"],
+             "maps_per_s": maps / stats["total_s"],
+             "device_maps_per_s": maps / stats["device_s"],
+             "reader_s_per_request": reader_s,
+             "fusion_s": fusion_s, "eval_s": eval_s, "points": n_points,
+             "points_scored": n_method, "gt_points": n_stl,
+             "overall_mm": overall, "acc_mm": r.acc_mean,
+             "comp_mm": r.comp_mean, "bound_mm": TANK_SPACING_MM / 2,
+             "inference_peak_mem_gb": peak_gb})
+        with torch.inference_mode():
+            tank_inplace(torch, root, data)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def tank_inplace(torch, root, data):
+    """One fp32 forward at the T&T config with every kernel (K4 included)
+    against the same forward with every plain version, on the rendered
+    scene's first request: all 13 depth maps within the golden tolerance
+    (tests/test_model_golden.py: 0.5% of the map's range plus 0.5 mm,
+    here in metres)."""
+    from effi_mvs_plus_tpu_torch.data.datasets import TanksDataset
+    from effi_mvs_plus_tpu_torch.io import load_npz_checkpoint
+    from effi_mvs_plus_tpu_torch.models import EffiMVSConfig, build_model
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
+
+    sample = TanksDataset(data, ["Horse"], TANK["V"], ND,
+                          target_wh=(TANK["W"], TANK["H"]))[0]
+    args = (torch.from_numpy(sample["imgs"][None]).cuda(),
+            {k: torch.from_numpy(sample["proj_matrices"][k][None]).cuda()
+             for k in ("stage1", "stage2", "stage3")},
+            torch.from_numpy(sample["depth_values"][None]).cuda())
+    model = build_model(
+        load_npz_checkpoint(os.path.join(root, "checkpoints",
+                                         "model_tank.npz")),
+        EffiMVSConfig(ndepths=(96, 8, 8)), device="cuda")
+    out_k = model(*args)
+    n = (cuda_warp.launches, cuda_gru.launches, cuda_conv.launches)
+    with plain_kernels(cuda_warp, cuda_gru, cuda_conv):
+        out_p = model(*args)
+    if (cuda_warp.launches, cuda_gru.launches, cuda_conv.launches) != n:
+        raise AssertionError("the plain forward launched a kernel")
+    _, worst = check_depth_maps("T&T", out_k, out_p, 5e-4)
+    conf_diff = (out_k["photometric_confidence"]
+                 - out_p["photometric_confidence"]).abs()
+    log({"phase": "tank_inplace",
+         "config": f"T&T B1 V{TANK['V']} {TANK['W']}x{TANK['H']} 96/8/8 fp32",
+         "worst_depth_err_over_tolerance": worst,
+         "median_depth_abs_m": float((out_k["depth"][-1]
+                                      - out_p["depth"][-1]).abs().median()),
+         "conf_max_abs": float(conf_diff.max()),
+         "conf_share_over_5e-3": float((conf_diff >= 5e-3).float().mean())})
 
 
 def gru_module(sd, stage, hd):

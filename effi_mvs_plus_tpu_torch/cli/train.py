@@ -101,12 +101,10 @@ def make_config(args):
 
 def initial_state(args):
     """(state dict or None, checkpoint payload or None, start epoch)."""
-    from effi_mvs_plus_tpu_torch.io import load_npz_checkpoint
+    from effi_mvs_plus_tpu_torch.io import load_state_dict
     from effi_mvs_plus_tpu_torch.train import trainer as T
     if args.loadckpt:
-        if args.loadckpt.endswith(".npz"):
-            return load_npz_checkpoint(args.loadckpt), None, 0
-        return T.load_checkpoint(args.loadckpt)["model"], None, 0
+        return load_state_dict(args.loadckpt), None, 0
     latest = T.latest_checkpoint(args.logdir) if args.resume else None
     if latest:
         payload = T.load_checkpoint(latest)

@@ -1,12 +1,11 @@
 """Named run profiles and the CLI defaults they set.
 
-The port's copy of the training part of ``effi_mvs_plus_tpu/config.py``:
-the reference's shell presets become named ``PROFILES``, and
-``apply_profile_defaults`` points an argparse parser's defaults at one.
+The port's copy of ``effi_mvs_plus_tpu/config.py``: the reference's
+shell presets become named ``PROFILES``, and ``apply_profile_defaults``
+points an argparse parser's defaults at one; the fusion constants
+(``DypcdParams``, ``TankParams``, ``TANK_FILTER_CONFIGS``) live here once.
 ``EffiMVSConfig`` is the port's own (``models/effi_mvs.py``).  The
-BlendedMVS finetune profile comes with the slice that ports finetuning,
-the fusion and Tanks & Temples parameters with those that port fusion and
-evaluation.
+BlendedMVS finetune profile comes with the slice that ports finetuning.
 """
 
 from __future__ import annotations
@@ -24,6 +23,8 @@ class DataConfig:
     nviews: int = 5
     numdepth: int = 384
     interval_scale: float = 0.53
+    max_h: int = 1184            # general_eval resize bound (test_dtu.sh)
+    max_w: int = 1600
     num_workers: int = 8
 
 
@@ -41,15 +42,55 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class DypcdParams:
+    """DTU dypcd fusion constants: consistency ladder i in [s, e),
+    dist < i*dist_base px, depth diff < log10(max(i,1.05))*diff_base mm;
+    photometric mask at conf_thresh; high-confidence depths override the
+    fused average."""
+    s: int = 1
+    e: int = 11
+    dist_base: float = 0.5
+    diff_base: float = 0.25
+    conf_thresh: float = 0.5
+    conf_override: float = 0.75
+
+
+@dataclasses.dataclass(frozen=True)
+class TankParams:
+    """Per-scene Tanks & Temples filter config."""
+    views: int = 11
+    dh_view_num: int = 2
+    dist_filter: float = 2.0
+    depth_filter: float = 6000.0
+    prob_threshold: float = 0.5
+    relative: bool = False
+
+
+# Deployed per-scene T&T configs (reference test_tank.py:600-615).
+TANK_FILTER_CONFIGS = {
+    **{s: TankParams() for s in
+       ("Family", "Francis", "Lighthouse", "M60", "Panther", "Playground",
+        "Train")},
+    "Horse": TankParams(dist_filter=4, prob_threshold=0.3),
+    "Auditorium": TankParams(dist_filter=1, depth_filter=500,
+                             prob_threshold=0.3),
+    **{s: TankParams(dist_filter=1, depth_filter=1600, prob_threshold=0.3)
+       for s in ("Ballroom", "Courtroom", "Museum", "Palace", "Temple")},
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class RunProfile:
     """A named end-to-end preset."""
     name: str
     model: EffiMVSConfig
     data: DataConfig
     train: Optional[TrainConfig] = None
+    fusion: Optional[DypcdParams] = None
 
 
 _DTU_ARCH = EffiMVSConfig()                            # ndepths (48,8,8)
+_TANK_ARCH = EffiMVSConfig(ndepths=(96, 8, 8))
 
 PROFILES = {
     # DTU training
@@ -57,6 +98,16 @@ PROFILES = {
         name="dtu_train", model=_DTU_ARCH,
         data=DataConfig(dataset="dtu_yao", nviews=5),
         train=TrainConfig()),
+    # DTU evaluation + dypcd fusion
+    "dtu_eval": RunProfile(
+        name="dtu_eval", model=_DTU_ARCH,
+        data=DataConfig(dataset="general_eval", nviews=5),
+        fusion=DypcdParams()),
+    # Tanks & Temples at 1920x1056, 11 views
+    "tank_eval": RunProfile(
+        name="tank_eval", model=_TANK_ARCH,
+        data=DataConfig(dataset="tank", nviews=11, max_h=1056, max_w=1920),
+        fusion=DypcdParams()),
 }
 
 
@@ -90,5 +141,12 @@ def apply_profile_defaults(parser, profile: RunProfile):
                  summary_freq=profile.train.summary_freq,
                  save_freq=profile.train.save_freq,
                  seed=profile.train.seed)
+    else:
+        d.update(num_view=profile.data.nviews,
+                 max_h=profile.data.max_h, max_w=profile.data.max_w)
+    if profile.fusion is not None:
+        d.update(conf=profile.fusion.conf_thresh,
+                 dist_base=profile.fusion.dist_base,
+                 diff_base=profile.fusion.diff_base)
     known = {a.dest for a in parser._actions}
     parser.set_defaults(**{k: v for k, v in d.items() if k in known})

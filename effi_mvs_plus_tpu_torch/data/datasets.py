@@ -1,17 +1,22 @@
-"""DTU training reader, the port's copy of
-``effi_mvs_plus_tpu/data/datasets.py::DTUTrainDataset`` (numpy only).
+"""Dataset readers, the port's copies of
+``effi_mvs_plus_tpu/data/datasets.py`` (numpy only):
+
+* DTUTrainDataset     — DTU training (Yao Yao's preprocessed set)
+* GeneralEvalDataset  — DTU testing layout, file-list driven
+* TanksDataset        — Tanks & Temples
 
 ``__getitem__`` returns a dict of numpy arrays, channels-last:
   imgs            (V, H, W, 3) float32 in [0,1]
   proj_matrices   {'stage0'..'stage4': (V, 2, 4, 4)}
   depth_values    (Nd,) ascending inverse depths
-  depth, mask     {'stage1'..'stage4': (h, w)}
+  [depth, mask]   {'stage1'..'stage4': (h, w)}        (training set)
   filename        output-path template
 
-The JAX reader resizes with its C++ data plane or cv2; the port may use
-neither, so it keeps its own nearest-neighbour resize (``_resize_nearest``,
-cv2's rule: source index ``int(dst * src_size / dst_size)``), which is the
-only resize this reader needs.  Images are decoded with PIL, as there.
+The JAX readers resize with its C++ data plane or cv2; the port may use
+neither, so it keeps its own resizes with cv2's rules for float32 images:
+``_resize_nearest`` (source index ``int(dst * src_size / dst_size)``) and
+``_resize_bilinear`` (``INTER_LINEAR``).  Images are decoded with PIL, as
+there.
 """
 
 from __future__ import annotations
@@ -37,6 +42,42 @@ def _resize_nearest(img, wh):
     ys = np.minimum((np.arange(dh) * (sh / dh)).astype(np.int64), sh - 1)
     xs = np.minimum((np.arange(dw) * (sw / dw)).astype(np.int64), sw - 1)
     return np.ascontiguousarray(np.asarray(img, np.float32)[ys][:, xs])
+
+
+def _linear_taps(src, dst):
+    """cv2 INTER_LINEAR taps along one axis: half-pixel centres, the
+    coordinate clamped to the edge pixels.  The coordinate and its
+    fraction are taken in float64 and only the weight is rounded to
+    float32, as cv2 does: a float32 coordinate near 1000 would move the
+    weight by up to 6e-5."""
+    f = (np.arange(dst) + 0.5) * (src / dst) - 0.5
+    i0 = np.floor(f).astype(np.int64)
+    a = (f - i0).astype(np.float32)
+    low, high = i0 < 0, i0 >= src - 1
+    i0[low], a[low] = 0, 0.0
+    i0[high], a[high] = src - 1, 0.0
+    return i0, np.minimum(i0 + 1, src - 1), a
+
+
+def _resize_bilinear(img, wh):
+    """cv2.resize(img, wh, interpolation=INTER_LINEAR) for float32: no
+    antialiasing, a horizontal then a vertical two-tap pass.  An axis
+    whose size does not change is skipped: its taps are the identity with
+    weight 0, so skipping it is exact, and the T&T reader resizes 1920-wide
+    images to 1920 wide."""
+    src = np.asarray(img, np.float32)
+    out = src
+    dw, dh = wh
+    extra = (1,) * (src.ndim - 2)
+    if dw != src.shape[1]:
+        x0, x1, ax = _linear_taps(src.shape[1], dw)
+        ax = ax.reshape(1, dw, *extra)
+        out = out[:, x0] * (1 - ax) + out[:, x1] * ax
+    if dh != src.shape[0]:
+        y0, y1, ay = _linear_taps(src.shape[0], dh)
+        ay = ay.reshape(dh, 1, *extra)
+        out = out[y0] * (1 - ay) + out[y1] * ay
+    return out.copy() if out is img else np.ascontiguousarray(out)
 
 
 def _gt_pyramid(arr):
@@ -188,6 +229,189 @@ class DTUTrainDataset:
                               for k in projs[0]},
             "depth": depth_ms,
             "mask": mask_ms,
+            "depth_values": depth_values,
+            "filename": scan + "/{}/" + f"{view_ids[0]:08d}" + "{}",
+        }
+
+
+class GeneralEvalDataset:
+    """File-list-driven eval reader (DTU testing layout).
+
+    Cam-file intrinsics are full-resolution and divided by 4 at load;
+    images resized to the max_h x max_w budget snapped down to multiples
+    of 32 with intrinsics rescale; per-scene consistent sizing via
+    fix_res/fix_wh.
+    """
+
+    def __init__(self, datapath, listfile, nviews, ndepths=384,
+                 interval_scale=1.06, max_h=1184, max_w=1600,
+                 fix_res=False, disp_max_first=False):
+        self.datapath = datapath
+        self.nviews = nviews
+        self.ndepths = ndepths
+        self.interval_scale = interval_scale
+        self.max_h, self.max_w = max_h, max_w
+        self.fix_res = fix_res
+        self.fix_wh = False
+        self.disp_max_first = disp_max_first
+        self._s_hw = None
+        self.metas = []
+        for scan in _read_scan_list(listfile):
+            for ref, srcs in camio.read_pair_file(
+                    os.path.join(datapath, scan, "pair.txt")):
+                if len(srcs) > 0:
+                    if len(srcs) < nviews:
+                        srcs = srcs + [srcs[0]] * (nviews - len(srcs))
+                    self.metas.append((scan, ref, srcs))
+
+    def __len__(self):
+        return len(self.metas)
+
+    def _read_cam(self, path):
+        cam = camio.read_cam_file(path)
+        intr = cam["intrinsics"].copy()
+        intr[:2, :] /= 4.0
+        fields = cam["depth_fields"]
+        depth_min = fields[0]
+        depth_interval = 2.5
+        if len(fields) >= 3:
+            depth_max = depth_min + int(fields[2]) * depth_interval
+            depth_interval = (depth_max - depth_min) / self.ndepths
+        depth_interval *= self.interval_scale
+        return cam["extrinsics"], intr, depth_min, depth_interval
+
+    def _scale_input(self, img, intr, base=32):
+        h, w = img.shape[:2]
+        new_w = int((1.0 * self.max_w / w * w) // base * base)
+        new_h = int((1.0 * self.max_h / h * h) // base * base)
+        intr = intr.copy()
+        intr[0, :] *= 1.0 * new_w / w
+        intr[1, :] *= 1.0 * new_h / h
+        return _resize_bilinear(img, (new_w, new_h)), intr
+
+    def __getitem__(self, idx):
+        scan, ref, srcs = self.metas[idx]
+        view_ids = [ref] + srcs[:self.nviews - 1]
+        imgs, projs = [], []
+        depth_values = None
+        for i, vid in enumerate(view_ids):
+            img_path = os.path.join(self.datapath, scan,
+                                    f"images_post/{vid:08d}.jpg")
+            if not os.path.exists(img_path):
+                img_path = os.path.join(self.datapath, scan,
+                                        f"images/{vid:08d}.jpg")
+            img = _imread(img_path)
+            ext, intr, dmin, dint = self._read_cam(os.path.join(
+                self.datapath, scan, f"cams/{vid:08d}_cam.txt"))
+            img, intr = self._scale_input(img, intr)
+
+            if self.fix_res:
+                self._s_hw = img.shape[:2]
+                self.fix_res = False
+                self.fix_wh = True
+            if i == 0 and not self.fix_wh:
+                self._s_hw = img.shape[:2]
+            s_h, s_w = self._s_hw
+            c_h, c_w = img.shape[:2]
+            if (c_h, c_w) != (s_h, s_w):
+                intr[0, :] *= 1.0 * s_w / c_w
+                intr[1, :] *= 1.0 * s_h / c_h
+                img = _resize_bilinear(img, (s_w, s_h))
+
+            imgs.append(img)
+            projs.append(camio.stage_proj_matrices(ext, intr))
+            if i == 0:
+                depth_values = camio.inverse_depth_values(
+                    dmin, dint, self.ndepths, self.disp_max_first)
+
+        return {
+            "imgs": np.stack(imgs).astype(np.float32, copy=False),
+            "proj_matrices": {k: np.stack([p[k] for p in projs])
+                              for k in projs[0]},
+            "depth_values": depth_values,
+            "filename": scan + "/{}/" + f"{view_ids[0]:08d}" + "{}",
+        }
+
+
+TANK_INTERMEDIATE = ("Family", "Francis", "Horse", "Lighthouse", "M60",
+                     "Panther", "Playground", "Train")
+TANK_ADVANCED = ("Auditorium", "Ballroom", "Courtroom", "Museum", "Palace",
+                 "Temple")
+
+
+def tank_split(scene):
+    """The T&T split directory a scene lives under."""
+    return "intermediate" if scene in TANK_INTERMEDIATE else "advanced"
+
+
+class TanksDataset:
+    """Tanks & Temples eval reader: images resized to target_wh (1920x1056)
+    with intrinsics rescale; depth range from cam line 11."""
+
+    def __init__(self, datapath, scans, nviews=11, ndepths=384,
+                 target_wh=(1920, 1056), disp_max_first=False):
+        self.datapath = datapath
+        self.nviews = nviews
+        self.ndepths = ndepths
+        self.target_wh = target_wh
+        self.disp_max_first = disp_max_first
+        self.metas = []
+        for scan in scans:
+            split = tank_split(scan)
+            base = os.path.join(datapath, split, scan)
+            for ref, srcs in camio.read_pair_file(
+                    os.path.join(base, "pair.txt")):
+                if len(srcs) > 0:
+                    self.metas.append((scan, split, ref, srcs))
+
+    def __len__(self):
+        return len(self.metas)
+
+    def __getitem__(self, idx):
+        scan, split, ref, srcs = self.metas[idx]
+        view_ids = ([ref] + srcs)[:self.nviews]
+        base = os.path.join(self.datapath, split, scan)
+        tw, th = self.target_wh
+        imgs, projs = [], []
+        depth_values = None
+        for i, vid in enumerate(view_ids):
+            img = _imread(os.path.join(base, f"images/{vid:08d}.jpg"))
+            # cams_1/ is the long-range camera set of the standard
+            # preprocessed T&T; per-scene and plain cams/ layouts follow
+            cam_dir = next(
+                (d for d in ("cams_1", f"cams_{scan.lower()}", "cams")
+                 if os.path.exists(os.path.join(base, d))), "cams")
+            cam = camio.read_cam_file(
+                os.path.join(base, cam_dir, f"{vid:08d}_cam.txt"))
+            h, w = img.shape[:2]
+            intr = cam["intrinsics"].copy()
+            intr[0, :] *= tw / w
+            intr[1, :] *= th / h
+            img = _resize_bilinear(img, (tw, th))
+            # the stage2 baseline is quarter resolution
+            intr_q = intr.copy()
+            intr_q[:2, :] /= 4.0
+            projs.append(camio.stage_proj_matrices(cam["extrinsics"], intr_q))
+            imgs.append(img)
+            if i == 0:
+                # a 4-field line 11 is [min, interval, num, max]: max is
+                # field 3; a short line is [min, max]: field 1 is depth_max,
+                # not an interval
+                fields = cam["depth_fields"]
+                depth_min = fields[0]
+                depth_max = fields[3] if len(fields) >= 4 else fields[1]
+                lo, hi = 1.0 / depth_max, 1.0 / depth_min
+                if self.disp_max_first:
+                    depth_values = np.linspace(hi, lo, self.ndepths,
+                                               dtype=np.float32)
+                else:
+                    depth_values = np.linspace(lo, hi, self.ndepths,
+                                               dtype=np.float32)
+
+        return {
+            "imgs": np.stack(imgs).astype(np.float32, copy=False),
+            "proj_matrices": {k: np.stack([p[k] for p in projs])
+                              for k in projs[0]},
             "depth_values": depth_values,
             "filename": scan + "/{}/" + f"{view_ids[0]:08d}" + "{}",
         }

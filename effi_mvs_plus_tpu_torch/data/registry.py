@@ -1,7 +1,5 @@
-"""Dataset registry: the names the train CLI's ``--dataset`` takes.
-
-The port has the DTU training reader so far; the eval, BlendedMVS and
-Tanks & Temples readers of the JAX package are still to be ported.
+"""Dataset registry: the names a profile's or a CLI's ``--dataset``
+takes.  The BlendedMVS reader of the JAX package is still to be ported.
 """
 
 from __future__ import annotations
@@ -11,6 +9,8 @@ from effi_mvs_plus_tpu_torch.data import datasets as _ds
 _REGISTRY = {
     "dtu_yao": _ds.DTUTrainDataset,
     "dtu": _ds.DTUTrainDataset,
+    "general_eval": _ds.GeneralEvalDataset,
+    "tank": _ds.TanksDataset,
 }
 
 

@@ -6,6 +6,8 @@
   (``update_block.N``, ``CSP_R.N``, ``CSP_C.N``) are aliases in the port's
   module tree too (``models/effi_mvs.py``), so a strict load sees neither
   missing nor unexpected keys.
+* ``load_state_dict(path)`` — the weights an entry point's ``--loadckpt``
+  names: a shipped ``.npz`` or a port checkpoint.
 * ``params_from_jax(tree)`` — the JAX package's parameter pytree (numpy
   arrays, its XLA layouts) back to the same state dict: HWIO -> OIHW,
   DHWIO -> OIDHW, and the transpose convolutions, which the JAX package
@@ -40,6 +42,15 @@ def load_npz_checkpoint(path) -> dict:
     """Read a shipped ``.npz`` state dict -> {name: CPU tensor}."""
     with np.load(path) as data:
         return {k: torch.from_numpy(np.array(data[k])) for k in data.files}
+
+
+def load_state_dict(path) -> dict:
+    """Network weights from a shipped ``.npz`` or from a torch checkpoint
+    whose ``"model"`` entry is the state dict (the port's
+    ``model_NNNNNN.ckpt``)."""
+    if str(path).endswith(".npz"):
+        return load_npz_checkpoint(path)
+    return torch.load(path, map_location="cpu", weights_only=True)["model"]
 
 
 def _unrelayout(path, arr):

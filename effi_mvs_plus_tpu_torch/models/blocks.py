@@ -14,12 +14,23 @@ import torch
 from torch import nn as tnn
 
 from effi_mvs_plus_tpu_torch import nn
-from effi_mvs_plus_tpu_torch.ops import cuda_gru
+from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru
 
 
 def _upsample_nearest2x(x):
     """(B,H,W,C) -> (B,2H,2W,C), nearest."""
     return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+def stem_chain_applies(x, training):
+    """Whether ``FeatureNet`` runs its stride-1 3x3 runs through the stem
+    chain K4: where K4 is a kernel (a CUDA tensor) and can run, that is in
+    eval mode with grad off (it folds running-statistic BN and has no
+    backward).  On the CPU the blocks run one by one, as the JAX package's
+    default stem (``stem_impl='xla'``) does, so the CPU keeps its
+    arithmetic: a bf16 forward fused there moves the noise-image depth
+    maps past tests/test_torch_bf16.py's bound against JAX."""
+    return x.is_cuda and not (training or torch.is_grad_enabled())
 
 
 def _level(cin, cout, first_k, first_stride, n):
@@ -34,7 +45,13 @@ class FeatureNet(tnn.Module):
     """4-level conv pyramid + top-down FPN (feature_net).  x: (B,H,W,3).
     Returns {'stage1': 1/8-res, 'stage2': 1/4-res, 'stage3': 1/2-res}.
     ``stat_groups``: train-mode BN statistics per group of the batch
-    axis (``nn.batch_norm``)."""
+    axis (``nn.batch_norm``).
+
+    Where ``stem_chain_applies`` (on the card, eval mode, grad off), each
+    level's run of stride-1 3x3 conv + BN + ReLU blocks (conv0's two, and
+    the two after conv1-3's 5x5 stride-2 block) runs as one
+    ``cuda_conv.conv_bn_relu_chain`` with BN folded in its
+    running-statistic form; elsewhere the blocks run one by one."""
 
     def __init__(self, in_ch, out_ch):
         super().__init__()
@@ -48,17 +65,26 @@ class FeatureNet(tnn.Module):
         self.out2 = nn.Conv(2, in_ch[3], out_ch[1], 3, padding=1, bias=False)
         self.out3 = nn.Conv(2, in_ch[3], out_ch[2], 3, padding=1, bias=False)
 
-    def forward(self, x, stat_groups=1):
-        for level in (self.conv0, self.conv1):
+    @staticmethod
+    def _run_level(level, x, stat_groups, fused):
+        if not fused:
             for blk in level:
                 x = blk(x, stat_groups)
-        conv1 = x
-        for blk in self.conv2:
-            x = blk(x, stat_groups)
-        conv2 = x
-        for blk in self.conv3:
-            x = blk(x, stat_groups)
-        intra = x
+            return x
+        blocks = list(level)
+        if blocks[0].conv.stride != 1:
+            x = blocks.pop(0)(x)
+        return cuda_conv.conv_bn_relu_chain(
+            x.contiguous(),
+            [cuda_conv.fold_bn(b.conv.weight, b.bn) for b in blocks])
+
+    def forward(self, x, stat_groups=1):
+        fused = stem_chain_applies(x, self.training)
+        conv1 = self._run_level(
+            self.conv1, self._run_level(self.conv0, x, stat_groups, fused),
+            stat_groups, fused)
+        conv2 = self._run_level(self.conv2, conv1, stat_groups, fused)
+        intra = self._run_level(self.conv3, conv2, stat_groups, fused)
         out = {"stage1": self.out1(intra)}
         intra = _upsample_nearest2x(intra) + self.inner1(conv2)
         out["stage2"] = self.out2(intra)

@@ -23,7 +23,11 @@ The two kernels of the path, the warp + correlation and the ConvGRU step,
 dispatch by the tensors' device (``ops/cuda_warp.py``,
 ``ops/cuda_gru.py``); there is no implementation switch.  Both are
 differentiable: on the card the warp's backward is the kernel K3 and the
-GRU's backward recomputes through the plain math.
+GRU's backward recomputes through the plain math.  On the card at
+inference (eval mode, grad off) the FPN's stride-1 3x3 runs go through
+the stem chain K4 (``ops/cuda_conv.py``) with BN folded
+(``blocks.stem_chain_applies``); training and the CPU run those
+convolutions one by one.
 
 Training (``model.train()``): BN takes batch statistics per view in the
 feature net and per source view in PixelwiseNet (``stat_groups``), the

@@ -1,0 +1,113 @@
+"""Fused chain of 3x3 conv (+ folded eval BN) + ReLU layers (kernel K4).
+
+Port of ``effi_mvs_plus_tpu/ops/pallas_conv.py``.  ``conv_bn_relu_chain``
+dispatches by the tensor's device: a CUDA tensor launches the
+hand-written kernel of ``csrc/conv_chain.cu``, a CPU tensor takes the
+plain version ``_chain_torch``.  Inference only, as on the TPU: the BN is
+folded in running-statistic form and there is no backward, so an input
+that requires grad is refused.
+
+The TPU kernel's fit predicate (``chain_fits``), its padding of the input
+channels to 8 and its 128-lane padded width are TPU layout and are not
+ported: the CUDA kernel takes every chain of the FPN as it is.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from effi_mvs_plus_tpu_torch.ops import _kernels
+
+# Launches of the CUDA kernel in this process (the wrapper adds one per
+# launch; nothing else touches it but a caller that resets it to 0).
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# channel chains the kernel is built for (csrc/conv_chain.cu EFFI_CHAINS):
+# the six stride-1 runs of the two FPNs, then a one- and a three-layer
+# chain that only the GPU tests launch, to hold the kernel's layer count
+# (1 to 3) against the plain version
+CHAINS = ((3, 4, 4), (3, 8, 8), (8, 8, 8), (16, 16, 16), (32, 32, 32),
+          (64, 64, 64), (8, 16), (3, 8, 8, 16))
+
+
+def fold_bn(w, bn, eps=1e-5, conv_bias=None):
+    """Fold eval-mode BN into a convolution, in fp32: returns (w', b').
+    w (O, I, kh, kw); ``bn`` holds ``weight``, ``bias``, ``running_mean``
+    and ``running_var`` (O,)."""
+    g = bn.weight.float() / torch.sqrt(bn.running_var.float() + eps)
+    w = w.float() * g[:, None, None, None]
+    b = bn.bias.float() - bn.running_mean.float() * g
+    if conv_bias is not None:
+        b = b + conv_bias.float() * g
+    return w, b
+
+
+def _chain_torch(x, specs):
+    """Plain PyTorch version.  x (B,H,W,C0); specs [(w (Co,Ci,3,3),
+    b (Co,))].  Each layer in fp32 on the input's values with its weights
+    rounded to the input's dtype, and each output rounded to that dtype,
+    as the TPU kernel stores its intermediates."""
+    dt = x.dtype
+    y = x
+    for w, b in specs:
+        z = F.conv2d(y.float().movedim(-1, 1), w.to(dt).float(), b.float(),
+                     padding=1)
+        y = torch.relu(z).movedim(1, -1).to(dt)
+    return y
+
+
+def _chain_cuda(x, specs):
+    global launches
+    B, H, W, _ = x.shape
+    chans = (x.shape[-1],) + tuple(w.shape[0] for w, _ in specs)
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"x must be one of {list(_DTYPES)}, got {x.dtype}")
+    if chans not in CHAINS:
+        raise ValueError(f"channel chain {chans} is not one the kernel is "
+                         f"built for: {CHAINS}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (B,H,W,C)")
+    w = torch.cat([w.to(x.dtype).float().permute(2, 3, 1, 0).reshape(-1)
+                   for w, _ in specs]).contiguous()       # [9][Ci][Co] each
+    bias = torch.cat([b.float() for _, b in specs]).contiguous()
+    out = torch.empty((B, H, W, chans[-1]), dtype=x.dtype, device=x.device)
+    c = list(chans) + [0] * (4 - len(chans))
+    lib = _kernels.library()
+    with torch.cuda.device(x.device):
+        status = lib.effi_conv_chain(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), B,
+            H, W, *c, _DTYPES[x.dtype], _kernels.stream_of(out))
+    _kernels.check(status, "conv_chain")
+    launches += 1
+    return out
+
+
+def conv_bn_relu_chain(x, specs):
+    """Fused chain of 3x3 stride-1 pad-1 conv (+ folded scale and bias) +
+    ReLU layers.  x (B,H,W,C0) channels-last; specs [(w (Co,Ci,3,3),
+    b (Co,)), ...] with BN already folded (``fold_bn``).  Returns
+    (B,H,W,C_L) in x's dtype."""
+    tensors = [x] + [t for spec in specs for t in spec]
+    if any(t.requires_grad for t in tensors):
+        raise ValueError("conv_bn_relu_chain is inference only (no "
+                         "backward): call it under torch.no_grad() or "
+                         "torch.inference_mode()")
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B,H,W,C), got {tuple(x.shape)}")
+    ci = x.shape[-1]
+    for w, b in specs:
+        if w.dim() != 4 or tuple(w.shape[1:]) != (ci, 3, 3) \
+                or tuple(b.shape) != (w.shape[0],):
+            raise ValueError(f"layer ({tuple(w.shape)}, {tuple(b.shape)}) "
+                             f"does not take {ci} channels with 3x3 taps")
+        ci = w.shape[0]
+    for t in tensors[1:]:
+        if t.device != x.device:
+            raise ValueError(f"weights on {t.device}, x on {x.device}")
+    if x.device.type == "cuda":
+        return _chain_cuda(x, specs)
+    if x.device.type != "cpu":
+        raise ValueError(f"unsupported device {x.device}")
+    return _chain_torch(x, specs)

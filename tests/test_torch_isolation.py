@@ -15,9 +15,10 @@ def _port_files():
     pkg = os.path.join(ROOT, "effi_mvs_plus_tpu_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
              for f in fs if f.endswith(".py")]
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")] + [
-        os.path.join(ROOT, "scripts", f"torch_profile_{name}.py")
-        for name in ("dtu", "train")]
+    scripts = os.path.join(ROOT, "scripts")
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")] + sorted(
+        os.path.join(scripts, f) for f in os.listdir(scripts)
+        if f.startswith("torch_") and f.endswith(".py"))
 
 
 def _imported_roots(tree):
@@ -50,6 +51,9 @@ def test_scan_sees_the_package():
     assert "chip_smoke.py" in rel
     assert "effi_mvs_plus_tpu_torch/models/effi_mvs.py" in rel
     assert "effi_mvs_plus_tpu_torch/ops/cuda_warp.py" in rel
+    assert "scripts/torch_probe_conv_chain.py" in rel
     for new in ("train/trainer.py", "cli/train.py", "utils/logging.py",
-                "config.py", "data/datasets.py"):
+                "config.py", "data/datasets.py", "ops/cuda_conv.py",
+                "fuse/dypcd.py", "fuse/ply.py", "eval/dtu.py",
+                "cli/test_tank.py", "cli/test_dtu.py", "cli/eval_dtu.py"):
         assert f"effi_mvs_plus_tpu_torch/{new}" in rel

@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (K1, K2 and K3, the warp's backward) against
-their plain versions on the card, at small shapes.  Marked ``cuda``:
-without a GPU every test skips.  On a GPU machine:
+"""The port's CUDA kernels (K1, K2, K3 the warp's backward, K4 the stem
+chain) against their plain versions on the card, at small shapes.  Marked
+``cuda``: without a GPU every test skips.  On a GPU machine:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py``
 (tests/conftest.py imports JAX).  This file imports no JAX, so it runs
 where only PyTorch is installed."""
@@ -8,8 +8,8 @@ where only PyTorch is installed."""
 import pytest
 import torch
 
-from effi_mvs_plus_tpu_torch.models.blocks import ConvGRU
-from effi_mvs_plus_tpu_torch.ops import cuda_gru, cuda_warp
+from effi_mvs_plus_tpu_torch.models.blocks import ConvGRU, FeatureNet
+from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
 
 pytestmark = pytest.mark.cuda
 
@@ -129,6 +129,75 @@ def test_gru_function_backward_matches_plain(gpu):
                                            for p in gru.parameters()])
     for a, b in zip(*grads):
         assert (a - b).abs().max() <= 1e-4 * max(1.0, float(b.abs().max()))
+
+
+def _chain_specs(chans, gen, dev):
+    """Weights at the fan-in scale of a trained layer, so activations stay
+    of order 1 through the chain."""
+    specs = []
+    for ci, co in zip(chans[:-1], chans[1:]):
+        w = torch.randn((co, ci, 3, 3), generator=gen, device=dev) \
+            * (2.0 / (9 * ci)) ** 0.5
+        b = 0.1 * torch.randn((co,), generator=gen, device=dev)
+        specs.append((w, b))
+    return specs
+
+
+@pytest.mark.parametrize("chans", cuda_conv.CHAINS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_chain_kernel_matches_plain(gpu, chans, dtype):
+    g = torch.Generator(device=gpu).manual_seed(4)
+    B, H, W = 2, 21, 45                   # ragged against every tile
+    x = torch.randn((B, H, W, chans[0]), generator=g, device=gpu).to(dtype)
+    specs = _chain_specs(chans, g, gpu)
+    n = cuda_conv.launches
+    got = cuda_conv.conv_bn_relu_chain(x, specs)
+    assert cuda_conv.launches == n + 1
+    want = cuda_conv._chain_torch(x, specs)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    # fp32: the same fp32 sums in another order (the JAX test's 5e-5, at
+    # the scale of the values); bf16: each layer's output is rounded to
+    # bf16 (2^-8 relative), and a rounding that differs in one layer moves
+    # the next by as much
+    rel = 5e-5 + ((2.0 ** -8) * (len(chans) - 1)
+                  if dtype == torch.bfloat16 else 0.0)
+    tol = rel * want.float().abs().clamp(min=1.0)
+    assert ((got.float() - want.float()).abs() <= tol).all()
+
+
+def test_conv_chain_refuses_grad_and_mixed_devices(gpu):
+    g = torch.Generator(device=gpu).manual_seed(5)
+    x = torch.randn((1, 8, 8, 3), generator=g, device=gpu)
+    specs = _chain_specs((3, 8, 8), g, gpu)
+    with pytest.raises(ValueError, match="inference only"):
+        cuda_conv.conv_bn_relu_chain(x.requires_grad_(), specs)
+    x = x.detach()
+    with pytest.raises(ValueError, match="weights on"):
+        cuda_conv.conv_bn_relu_chain(
+            x, [(w.cpu(), b.cpu()) for w, b in specs])
+    with pytest.raises(ValueError, match="weights on"):
+        cuda_conv.conv_bn_relu_chain(x.cpu(), specs)
+    with pytest.raises(ValueError, match="not one the kernel"):
+        cuda_conv.conv_bn_relu_chain(x, _chain_specs((3, 12, 12), g, gpu))
+
+
+def test_feature_net_takes_the_chain_at_inference_only(gpu):
+    """On the card an eval forward with grad off launches K4 once a level;
+    grad on or train mode runs the blocks; both agree in eval."""
+    net = FeatureNet((8, 16, 32, 64), (32, 16, 8)).to(gpu).eval()
+    x = torch.rand((2, 32, 48, 3), device=gpu)
+    n = cuda_conv.launches
+    with torch.inference_mode():
+        fused = net(x)
+    assert cuda_conv.launches == n + 4
+    unfused = net(x)
+    net.train()
+    with torch.no_grad():
+        net(x)
+    assert cuda_conv.launches == n + 4
+    for k in fused:
+        assert (fused[k] - unfused[k].detach()).abs().max() <= 2e-4
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gpu):
