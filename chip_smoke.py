@@ -16,9 +16,13 @@ imports nothing of JAX.  It
    at every stage shape of the DTU training and eval configs, in fp32 and
    bf16,
    and holds each against its plain PyTorch version on the same inputs
-   (K3: autograd of the plain warp), with the kernel and plain times from
-   CUDA events; K1 and K3 also on a rig that projects off the image and
-   one that sees hypotheses from behind;
+   (K3: autograd of the plain warp; K2: ``_gru_reference``, the TPU
+   kernel's rounding points, with r*h rounded to the inputs' dtype; K2
+   and K4 in bf16 within the tolerance of the range that rounding gives,
+   ``ops/rounding_bounds.py``), with the kernel and plain times from CUDA
+   events (K2 and K4 also packing their weights at each call, as a model
+   whose weights are not frozen does); K1 and K3 also on a rig that
+   projects off the image and one that sees hypotheses from behind;
 3. drives the serving path: ``InferenceEngine(device="cuda")`` with the
    shipped DTU weights at the DTU eval config answers fp32 and bf16
    requests and writes a scene with ``save_scene_depths``, with the
@@ -47,7 +51,9 @@ imports nothing of JAX.  It
    bf16) and ``fuse_scene_tank`` (the deployed Horse filter) into a PLY, scores it against the plane with ``eval/dtu.py``,
    and holds one fp32 forward with every kernel against one with every
    plain version;
-7. prints a ``{"kernels": [...]}`` line, then the device line last.
+7. prints a ``{"kernels": [...]}`` line (K2 and K4 entries name the
+   CUDA route of each layer in ``cuda_route``: ``mma`` on the tensor
+   cores, ``fma`` on the CUDA cores), then the device line last.
 
 Any failure raises and the exit code is nonzero.  Without a GPU it exits
 1 and prints no result.
@@ -235,6 +241,55 @@ def check_kernel(kernel, what, got, want, dtype, scale=1.0):
     return float(diff.max())
 
 
+def bounds_in_slices(fn, batched, rest, out_numel):
+    """``rounding_bounds``' fn(*batched, *rest) a slice of the batch axis
+    at a time (about 2^26 outputs each, to bound the float64 temporaries);
+    (lo, hi, values with two roundings)."""
+    import torch
+    B = batched[0].shape[0]
+    step = max(1, 2 ** 26 * B // out_numel)
+    parts = [fn(*(t[i:i + step] for t in batched), *rest)
+             for i in range(0, B, step)]
+    return (torch.cat([p[0] for p in parts]),
+            torch.cat([p[1] for p in parts]), sum(p[2] for p in parts))
+
+
+def check_within(what, got, want, lo, hi, tol):
+    """A bf16 kernel's output within ``tol`` of [lo, hi], elementwise.
+    Returns the outputs past ``tol`` of ``want``, the plain version,
+    which only the range admits."""
+    g = got.double()
+    dist = (lo - g).clamp(min=0) + (g - hi).clamp(min=0)
+    excess = float((dist - tol).max())
+    if not excess <= 0:
+        raise AssertionError(
+            f"{what}: kernel outside the tolerance of the range its "
+            f"rounding points give (by {excess:.3e}; max abs against plain "
+            f"{float((got.float() - want).abs().max()):.3e})")
+    return int(((got.float() - want).abs() > tol).sum())
+
+
+def check_gru(what, got, want, dtype, args):
+    """K2 against ``_gru_reference`` before its last rounding (``want``),
+    at check_kernel's tolerance.  In bf16 the kernel and the reference
+    each round r*h to bf16 (the TPU kernel's rounding point) after their
+    own fp32 sum, so an r*h within fp32 noise of a rounding boundary may
+    round either way, and the outputs it reaches move with it.  So in bf16
+    the kernel must lie within that tolerance of [lo, hi], the range of h'
+    over both roundings of every such r*h (``rounding_bounds.gru_bounds``
+    on ``args``, float64; lo = hi at an output that reads none).  Returns
+    (max abs error against want, outputs past the tolerance of want, r*h
+    values with two roundings)."""
+    if dtype == "float32":
+        return check_kernel("conv_gru", what, got, want, dtype), 0, 0
+    from effi_mvs_plus_tpu_torch.ops import rounding_bounds
+    lo, hi, two = bounds_in_slices(rounding_bounds.gru_bounds, args[:2],
+                                   args[2:], got.numel())
+    beyond = check_within(f"conv_gru {what}", got, want, lo, hi,
+                          ATOL["conv_gru"] + RTOL[dtype] * want.abs())
+    return float((got.float() - want).abs().max()), beyond, two
+
+
 def check_depth_maps(what, out_k, out_p, floor):
     """The 13 depth maps of a forward with the kernels against one with the
     plain versions, at the golden tolerance (tests/test_model_golden.py):
@@ -261,13 +316,15 @@ def plain_kernels(cuda_warp, cuda_gru, cuda_conv):
     def warp_plain(ref, src, rots, trs, depth):
         return cuda_warp._views_torch(ref, src, rots, trs, depth).to(ref.dtype)
 
-    def gru_plain(h, x, p):
+    def gru_plain(h, x, p, packed=None):
         return cuda_gru._gru_torch(h, x, p.convz.weight, p.convr.weight,
                                    p.convq.weight, p.convz.bias,
                                    p.convr.bias, p.convq.bias)
+
+    def chain_plain(x, specs, packed=None):
+        return cuda_conv._chain_torch(x, specs)
     (cuda_warp.warp_correlate_views, cuda_gru.gru_step,
-     cuda_conv.conv_bn_relu_chain) = (warp_plain, gru_plain,
-                                      cuda_conv._chain_torch)
+     cuda_conv.conv_bn_relu_chain) = (warp_plain, gru_plain, chain_plain)
     try:
         yield
     finally:
@@ -353,7 +410,7 @@ def forward_kernel_phases(torch, sd, gen):
     behind-the-camera rigs."""
     from effi_mvs_plus_tpu_torch.core import geometry
     from effi_mvs_plus_tpu_torch.data import cams as camio
-    from effi_mvs_plus_tpu_torch.ops import cuda_gru, cuda_warp
+    from effi_mvs_plus_tpu_torch.ops import cuda_warp
 
     entries = []
     for cname, cfg in (*CONFIGS.items(), ("train", TRAIN)):
@@ -393,44 +450,10 @@ def forward_kernel_phases(torch, sd, gen):
                     bound_ms=bms, bound_by=bby, library_ms=None))
                 del ref, src, depth
 
-                hd = HDIM[s]
-                gru = gru_module(sd, s + 1, hd)
-                hx = torch.randn((2, B, h, w, hd), generator=gen,
-                                 device="cuda")
-                hh = torch.tanh(hx[0]).to(dtype).contiguous()
-                xx = torch.relu(hx[1]).to(dtype).contiguous()
-                del hx
-                # the kernel rounds the weights to the inputs' dtype
-                wk = [getattr(gru, g).weight.to(dtype).float()
-                      for g in ("convz", "convr", "convq")]
-                bk = [getattr(gru, g).bias for g in ("convz", "convr", "convq")]
-
-                def k2():
-                    return cuda_gru.gru_step(hh, xx, gru)
-
-                def p2():
-                    return cuda_gru._gru_torch(hh.float(), xx.float(), *wk,
-                                               *bk)
-                err = check_kernel("conv_gru",
-                                   f"{cname} stage{s + 1} {dname}",
-                                   k2(), p2(), dname)
-                npx = B * h * w
-                esz = hh.element_size()
-                byts = 3 * npx * hd * esz + (9 * 2 * hd * 3 * hd + 3 * hd) * 4
-                bms, bby = bound(byts, 108 * hd * hd * npx, dname)
-                entries.append(dict(
-                    name="conv_gru", route="cuda",
-                    source="effi_mvs_plus_tpu_torch/csrc/conv_gru.cu",
-                    replaces="effi_mvs_plus_tpu/ops/pallas_gru.py:104",
-                    config=cname, stage=s + 1, dtype=dname,
-                    shape=f"B{B} {h}x{w} hd{hd}",
-                    launches_per_forward=9, max_abs_err=err,
-                    ms=median_ms(torch, k2, 7),
-                    plain_ms=median_ms(torch, p2, 3),
-                    bound_ms=bms, bound_by=bby, library_ms=None))
+                entries.append(gru_entry(torch, sd, gen, cname, (B, h, w),
+                                         s, dname, dtype))
                 log({"phase": "kernels", **entries[-2]})
                 log({"phase": "kernels", **entries[-1]})
-                del hh, xx
         torch.cuda.empty_cache()
 
     # K1 on rigs that leave the image and that see hypotheses from behind
@@ -463,6 +486,51 @@ def forward_kernel_phases(torch, sd, gen):
     del ref, src, depth
     torch.cuda.empty_cache()
     return entries
+
+
+def gru_entry(torch, sd, gen, cname, bhw, s, dname, dtype):
+    """K2 at stage s (0-based) of a config, maps (B, h, w): the checkpoint's
+    GRU on seeded h = tanh, x = relu of N(0, 1), held against
+    ``_gru_reference`` (``check_gru``) and timed on weights packed once
+    (``ms``) and packed at each call (``pack_ms``); returns its entry."""
+    from effi_mvs_plus_tpu_torch.ops import cuda_gru
+    B, h, w = bhw
+    hd = HDIM[s]
+    gru = gru_module(sd, s + 1, hd)
+    hx = torch.randn((2, B, h, w, hd), generator=gen, device="cuda")
+    hh = torch.tanh(hx[0]).to(dtype).contiguous()
+    xx = torch.relu(hx[1]).to(dtype).contiguous()
+    del hx
+    wk = [getattr(gru, g).weight for g in ("convz", "convr", "convq")]
+    bk = [getattr(gru, g).bias for g in ("convz", "convr", "convq")]
+    packed = cuda_gru.pack(gru, dtype)
+
+    def k2(packed=packed):
+        return cuda_gru.gru_step(hh, xx, gru, packed)
+
+    def p2():
+        # the TPU kernel's rounding points (r*h in the inputs' dtype), h'
+        # before its one rounding
+        return cuda_gru._gru_reference(hh, xx, *wk, *bk, rounded=False)
+    err, beyond, two = check_gru(f"{cname} stage{s + 1} {dname}", k2(),
+                                 p2(), dname, (hh, xx, *wk, *bk))
+    npx = B * h * w
+    esz = hh.element_size()
+    byts = 3 * npx * hd * esz + (9 * 2 * hd * 3 * hd + 3 * hd) * 4
+    bms, bby = bound(byts, 108 * hd * hd * npx, dname)
+    return dict(
+        name="conv_gru", route="cuda",
+        cuda_route="mma" if dtype == torch.bfloat16 else "fma",
+        source="effi_mvs_plus_tpu_torch/csrc/conv_gru.cu",
+        replaces="effi_mvs_plus_tpu/ops/pallas_gru.py:104",
+        config=cname, stage=s + 1, dtype=dname,
+        shape=f"B{B} {h}x{w} hd{hd}",
+        launches_per_forward=9, max_abs_err=err,
+        beyond_plain_tolerance=beyond, two_roundings=two,
+        ms=median_ms(torch, k2, 7),
+        pack_ms=median_ms(torch, lambda: k2(None), 7),
+        plain_ms=median_ms(torch, p2, 3),
+        bound_ms=bms, bound_by=bby, library_ms=None)
 
 
 def dtu_batch(camio):
@@ -895,7 +963,7 @@ def training_path(torch, sd):
     return {"k1_launches": k1, "k2_launches": k2, "k3_launches": k3}
 
 
-def check_chain(what, got, want, dtype, layers):
+def check_chain(what, got, want, dtype, x, specs):
     """Hold K4 against its plain version, elementwise:
     |kernel - plain| <= (5e-5 + layers * 2^-8 [bf16]) * max(|plain|, 1).
 
@@ -904,17 +972,31 @@ def check_chain(what, got, want, dtype, layers):
     (tests/test_pallas_conv.py:29), taken relative to the values, which
     reach tens in the deeper levels.  bf16: each layer's output is rounded
     to bf16 (2^-8 relative) in both, and a value that rounds the other way
-    in one layer moves the next by as much.  Returns the max abs error."""
-    got, want = got.float(), want.float()
-    rel = ATOL["conv_chain"] + layers * RTOL[dtype]
-    diff = (got - want).abs()
-    excess = float((diff - rel * want.abs().clamp(min=1.0)).max())
+    in one layer moves the next by as much.  A value within fp32 noise of
+    a rounding boundary may round either way in either of them, and the
+    next layer's outputs it reaches move by that ulp times a weight, so in
+    bf16 the kernel must lie within the tolerance of [lo, hi], the range
+    over both roundings of every such value, layer after layer
+    (``rounding_bounds.chain_bounds``, float64; lo = hi at an output that
+    reads none).  Returns (max abs error, outputs past the tolerance of
+    the plain version, values with two roundings)."""
+    rel = ATOL["conv_chain"] + len(specs) * RTOL[dtype]
+    tol = rel * want.float().abs().clamp(min=1.0)
+    diff = (got.float() - want.float()).abs()
+    if dtype == "bfloat16":
+        from effi_mvs_plus_tpu_torch.ops import rounding_bounds
+        lo, hi, two = bounds_in_slices(rounding_bounds.chain_bounds, (x,),
+                                       (specs,), got.numel())
+        beyond = check_within(f"conv_chain {what}", got, want.float(), lo,
+                              hi, tol)
+        return float(diff.max()), beyond, two
+    excess = float((diff - tol).max())
     if not excess <= 0:
         raise AssertionError(
             f"conv_chain {what}: kernel differs from plain beyond {rel:.3g} "
             f"max(|plain|, 1) (by {excess:.3e}, max abs "
             f"{float(diff.max()):.3e})")
-    return float(diff.max())
+    return float(diff.max()), 0, 0
 
 
 # the stem chains in the order a forward launches them
@@ -930,9 +1012,9 @@ def record_chains(model, imgs):
     calls = []
     real = cuda_conv.conv_bn_relu_chain
 
-    def record(x, specs):
+    def record(x, specs, packed=None):
         calls.append((x, specs))
-        return real(x, specs)
+        return real(x, specs, packed)
     cuda_conv.conv_bn_relu_chain = record
     try:
         B, V, H, W, _ = imgs.shape
@@ -956,7 +1038,7 @@ def conv_chain_phases(torch, root, gen):
     place when grad is on."""
     from effi_mvs_plus_tpu_torch.io import load_npz_checkpoint
     from effi_mvs_plus_tpu_torch.models import EffiMVSConfig, build_model
-    from effi_mvs_plus_tpu_torch.ops import cuda_conv
+    from effi_mvs_plus_tpu_torch.ops import conv_pack, cuda_conv
 
     entries = []
     for cname, ckpt in (("tnt", "model_tank.npz"), ("dtu", "model_dtu.npz")):
@@ -970,8 +1052,10 @@ def conv_chain_phases(torch, root, gen):
                              ("bfloat16", torch.bfloat16)):
             for name, x, specs, blocks in record_chains(model,
                                                         imgs.to(dtype)):
-                def k4():
-                    return cuda_conv.conv_bn_relu_chain(x, specs)
+                packed = cuda_conv.pack(specs, x.dtype)
+
+                def k4(packed=packed):
+                    return cuda_conv.conv_bn_relu_chain(x, specs, packed)
 
                 def plain():
                     return cuda_conv._chain_torch(x, specs)
@@ -981,8 +1065,8 @@ def conv_chain_phases(torch, root, gen):
                     for blk in blocks:
                         y = blk(y)
                     return y
-                err = check_chain(f"{cname} {name} {dname}", k4(), plain(),
-                                  dname, len(specs))
+                err, beyond, two = check_chain(f"{cname} {name} {dname}",
+                                               k4(), plain(), dname, x, specs)
                 chans = (x.shape[-1],) + tuple(w.shape[0] for w, _ in specs)
                 npx = x.shape[0] * x.shape[1] * x.shape[2]
                 flops = 18 * npx * sum(a * b for a, b in zip(chans[:-1],
@@ -993,13 +1077,18 @@ def conv_chain_phases(torch, root, gen):
                 ms = median_ms(torch, k4, 5)
                 entries.append(dict(
                     name="conv_chain", route="cuda",
+                    cuda_route="+".join(
+                        "mma" if conv_pack.mma_route(x.dtype, a, b) else "fma"
+                        for a, b in zip(chans[:-1], chans[1:])),
                     source="effi_mvs_plus_tpu_torch/csrc/conv_chain.cu",
                     replaces="effi_mvs_plus_tpu/ops/pallas_conv.py:78",
                     config=cname, chain=name, dtype=dname,
                     shape=f"B{x.shape[0]} {x.shape[1]}x{x.shape[2]} "
                           + "-".join(map(str, chans)),
                     launches_per_forward=len(CHAIN_NAMES),
-                    max_abs_err=err, ms=ms,
+                    max_abs_err=err, beyond_plain_tolerance=beyond,
+                    two_roundings=two, ms=ms,
+                    pack_ms=median_ms(torch, lambda: k4(None), 5),
                     plain_ms=median_ms(torch, plain, 3),
                     bound_ms=bms, bound_by=bby, share_of_bound=bms / ms,
                     library_ms=median_ms(torch, cudnn, 3)))
@@ -1016,7 +1105,8 @@ def stem_ab(torch, sd):
     on (the parameters frozen, so nothing is recorded); fp32 and bf16,
     timed in turns (off on on off off on, after a warm-up of each)."""
     from effi_mvs_plus_tpu_torch.data import cams as camio
-    from effi_mvs_plus_tpu_torch.models import EffiMVSConfig, build_model
+    from effi_mvs_plus_tpu_torch.models import (EffiMVSConfig, build_model,
+                                                freeze_kernel_weights)
     from effi_mvs_plus_tpu_torch.ops import cuda_conv
 
     batch = dtu_batch(camio)
@@ -1026,8 +1116,8 @@ def stem_ab(torch, sd):
             torch.from_numpy(batch["depth_values"]).cuda())
     out = {"phase": "dtu_fused_stem", "config": "dtu B6 V5 1152x864 48/8/8"}
     for dname, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
-        model = build_model(sd, EffiMVSConfig(compute_dtype=dtype),
-                            device="cuda").requires_grad_(False)
+        model = freeze_kernel_weights(build_model(
+            sd, EffiMVSConfig(compute_dtype=dtype), device="cuda"))
 
         def forward(on):
             start = torch.cuda.Event(enable_timing=True)

@@ -17,7 +17,8 @@ import torch
 
 from effi_mvs_plus_tpu_torch.data import cams as camio
 from effi_mvs_plus_tpu_torch.data.pfm import save_pfm
-from effi_mvs_plus_tpu_torch.models import EffiMVSConfig, build_model
+from effi_mvs_plus_tpu_torch.models import (EffiMVSConfig, build_model,
+                                             freeze_kernel_weights)
 
 _STAGES = ("stage1", "stage2", "stage3")
 
@@ -35,7 +36,8 @@ class InferenceEngine:
         every real pixel, the principal point does not move, and zeros
         match the warp's out-of-image convention, so real-area depths are
         unaffected outside a receptive-field-wide edge band."""
-        self.model = build_model(state_dict, cfg, device)
+        self.model = freeze_kernel_weights(build_model(state_dict, cfg,
+                                                       device))
         self.device = next(self.model.parameters()).device
         self.cfg = cfg
         self.buckets = (sorted(buckets, key=lambda hw: hw[0] * hw[1])

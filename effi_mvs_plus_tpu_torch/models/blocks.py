@@ -33,6 +33,28 @@ def stem_chain_applies(x, training):
     return x.is_cuda and not (training or torch.is_grad_enabled())
 
 
+def freeze_kernel_weights(model):
+    """Declare ``model``'s weights final (the ``InferenceEngine``'s): each
+    ConvGRU and FPN then folds and packs its kernel's operands once per
+    dtype, at its first forward, and hands them to every later kernel call
+    instead of packing at each launch.  Parameters stop requiring grad.  A
+    weight changed or moved afterwards is not seen: build a new model."""
+    for m in model.modules():
+        if isinstance(m, (ConvGRU, FeatureNet)):
+            m.frozen = {}
+    return model.requires_grad_(False)
+
+
+def _frozen(module, key, build):
+    """``build()`` made once per ``key`` where the module's weights are
+    frozen (``freeze_kernel_weights``); None where they are not."""
+    if module.frozen is None:
+        return None
+    if key not in module.frozen:
+        module.frozen[key] = build()
+    return module.frozen[key]
+
+
 def _level(cin, cout, first_k, first_stride, n):
     """One FPN level: a k x k conv (stride `first_stride`) then n-1 3x3
     convs, each conv + BN + ReLU."""
@@ -55,6 +77,7 @@ class FeatureNet(tnn.Module):
 
     def __init__(self, in_ch, out_ch):
         super().__init__()
+        self.frozen = None
         self.conv0 = _level(3, in_ch[0], 3, 1, 2)
         self.conv1 = _level(in_ch[0], in_ch[1], 5, 2, 3)
         self.conv2 = _level(in_ch[1], in_ch[2], 5, 2, 3)
@@ -65,8 +88,8 @@ class FeatureNet(tnn.Module):
         self.out2 = nn.Conv(2, in_ch[3], out_ch[1], 3, padding=1, bias=False)
         self.out3 = nn.Conv(2, in_ch[3], out_ch[2], 3, padding=1, bias=False)
 
-    @staticmethod
-    def _run_level(level, x, stat_groups, fused):
+    def _run_level(self, i, x, stat_groups, fused):
+        level = getattr(self, f"conv{i}")
         if not fused:
             for blk in level:
                 x = blk(x, stat_groups)
@@ -74,17 +97,23 @@ class FeatureNet(tnn.Module):
         blocks = list(level)
         if blocks[0].conv.stride != 1:
             x = blocks.pop(0)(x)
-        return cuda_conv.conv_bn_relu_chain(
-            x.contiguous(),
-            [cuda_conv.fold_bn(b.conv.weight, b.bn) for b in blocks])
+
+        def fold():
+            return [cuda_conv.fold_bn(b.conv.weight, b.bn) for b in blocks]
+
+        def fold_and_pack():
+            specs = fold()
+            return specs, cuda_conv.pack(specs, x.dtype)
+        specs, packed = (_frozen(self, (i, x.dtype), fold_and_pack)
+                         or (fold(), None))
+        return cuda_conv.conv_bn_relu_chain(x.contiguous(), specs, packed)
 
     def forward(self, x, stat_groups=1):
         fused = stem_chain_applies(x, self.training)
         conv1 = self._run_level(
-            self.conv1, self._run_level(self.conv0, x, stat_groups, fused),
-            stat_groups, fused)
-        conv2 = self._run_level(self.conv2, conv1, stat_groups, fused)
-        intra = self._run_level(self.conv3, conv2, stat_groups, fused)
+            1, self._run_level(0, x, stat_groups, fused), stat_groups, fused)
+        conv2 = self._run_level(2, conv1, stat_groups, fused)
+        intra = self._run_level(3, conv2, stat_groups, fused)
         out = {"stage1": self.out1(intra)}
         intra = _upsample_nearest2x(intra) + self.inner1(conv2)
         out["stage2"] = self.out2(intra)
@@ -180,12 +209,14 @@ class ConvGRU(tnn.Module):
 
     def __init__(self, hdim, xdim):
         super().__init__()
+        self.frozen = None
         self.convz = nn.Conv(2, hdim + xdim, hdim, 3, padding=1)
         self.convr = nn.Conv(2, hdim + xdim, hdim, 3, padding=1)
         self.convq = nn.Conv(2, hdim + xdim, hdim, 3, padding=1)
 
     def forward(self, h, x):
-        return cuda_gru.gru_step(h.contiguous(), x.contiguous(), self)
+        packed = _frozen(self, h.dtype, lambda: cuda_gru.pack(self, h.dtype))
+        return cuda_gru.gru_step(h.contiguous(), x.contiguous(), self, packed)
 
 
 class DepthHead(tnn.Module):

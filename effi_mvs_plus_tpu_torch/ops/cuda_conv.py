@@ -7,6 +7,10 @@ plain version ``_chain_torch``.  Inference only, as on the TPU: the BN is
 folded in running-statistic form and there is no backward, so an input
 that requires grad is refused.
 
+The kernel runs bf16 layers of 8 or more channels on the tensor cores and
+everything else on the CUDA cores (``csrc/conv3x3_tile.cuh``); both keep
+``_chain_torch``'s rounding.
+
 The TPU kernel's fit predicate (``chain_fits``), its padding of the input
 channels to 8 and its 128-lane padded width are TPU layout and are not
 ported: the CUDA kernel takes every chain of the FPN as it is.
@@ -17,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from effi_mvs_plus_tpu_torch.ops import _kernels
+from effi_mvs_plus_tpu_torch.ops import _kernels, conv_pack
 
 # Launches of the CUDA kernel in this process (the wrapper adds one per
 # launch; nothing else touches it but a caller that resets it to 0).
@@ -58,7 +62,20 @@ def _chain_torch(x, specs):
     return y
 
 
-def _chain_cuda(x, specs):
+def pack_weights(specs, dtype):
+    """The kernel's weights for inputs of ``dtype``, layer by layer, each
+    in its route's layout (``conv_pack``), as bytes."""
+    return torch.cat([conv_pack.pack(w, dtype) for w, _ in specs])
+
+
+def pack(specs, dtype):
+    """The kernel's operands for ``specs`` (as ``conv_bn_relu_chain``'s)
+    and inputs of ``dtype``: ``conv_pack.Packed``."""
+    return conv_pack.Packed(dtype, pack_weights(specs, dtype), torch.cat(
+        [b.detach().float() for _, b in specs]).contiguous())
+
+
+def _chain_cuda(x, specs, packed):
     global launches
     B, H, W, _ = x.shape
     chans = (x.shape[-1],) + tuple(w.shape[0] for w, _ in specs)
@@ -69,26 +86,32 @@ def _chain_cuda(x, specs):
                          f"built for: {CHAINS}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous (B,H,W,C)")
-    w = torch.cat([w.to(x.dtype).float().permute(2, 3, 1, 0).reshape(-1)
-                   for w, _ in specs]).contiguous()       # [9][Ci][Co] each
-    bias = torch.cat([b.float() for _, b in specs]).contiguous()
     out = torch.empty((B, H, W, chans[-1]), dtype=x.dtype, device=x.device)
+    for name, t in (("x", x), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
+    if packed is None:
+        packed = pack(specs, x.dtype)
+    packed.check(x.dtype, x.device)
     c = list(chans) + [0] * (4 - len(chans))
     lib = _kernels.library()
     with torch.cuda.device(x.device):
         status = lib.effi_conv_chain(
-            x.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), B,
-            H, W, *c, _DTYPES[x.dtype], _kernels.stream_of(out))
+            x.data_ptr(), packed.weights.data_ptr(), packed.bias.data_ptr(),
+            out.data_ptr(), B, H, W, *c, _DTYPES[x.dtype],
+            _kernels.stream_of(out))
     _kernels.check(status, "conv_chain")
     launches += 1
     return out
 
 
-def conv_bn_relu_chain(x, specs):
+def conv_bn_relu_chain(x, specs, packed=None):
     """Fused chain of 3x3 stride-1 pad-1 conv (+ folded scale and bias) +
     ReLU layers.  x (B,H,W,C0) channels-last; specs [(w (Co,Ci,3,3),
-    b (Co,)), ...] with BN already folded (``fold_bn``).  Returns
-    (B,H,W,C_L) in x's dtype."""
+    b (Co,)), ...] with BN already folded (``fold_bn``).  ``packed``:
+    ``pack(specs, x.dtype)``, made once by a caller whose weights no longer
+    change; otherwise the kernel's call packs.  Returns (B,H,W,C_L) in x's
+    dtype."""
     tensors = [x] + [t for spec in specs for t in spec]
     if any(t.requires_grad for t in tensors):
         raise ValueError("conv_bn_relu_chain is inference only (no "
@@ -107,7 +130,7 @@ def conv_bn_relu_chain(x, specs):
         if t.device != x.device:
             raise ValueError(f"weights on {t.device}, x on {x.device}")
     if x.device.type == "cuda":
-        return _chain_cuda(x, specs)
+        return _chain_cuda(x, specs, packed)
     if x.device.type != "cpu":
         raise ValueError(f"unsupported device {x.device}")
     return _chain_torch(x, specs)

@@ -13,6 +13,12 @@ for the GRU, so there is none here.  A CPU tensor takes the plain version
 
 As in the JAX package the convolution weights are cast to the inputs'
 dtype (a bf16 step rounds them to bf16); accumulation is fp32.
+
+The kernel has two routes, by the inputs' dtype: bf16 on the tensor cores,
+fp32 on the CUDA cores (``csrc/conv3x3_tile.cuh``).  In bf16 it rounds
+where the TPU kernel rounds (r*h stored in bf16 before the q convolution,
+``pallas_gru.py:149``), which ``_gru_reference`` repeats in plain PyTorch
+for the checks.
 """
 
 from __future__ import annotations
@@ -20,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from effi_mvs_plus_tpu_torch import nn
-from effi_mvs_plus_tpu_torch.ops import _kernels
+from effi_mvs_plus_tpu_torch.ops import _kernels, conv_pack
 
 # Launches of the CUDA kernel in this process (the wrapper adds one per
 # launch; nothing else touches it but a caller that resets it to 0).
@@ -43,13 +49,50 @@ def _gru_torch(h, x, wz, wr, wq, bz, br, bq):
     return (1 - z) * h + z * q
 
 
-def _pack(w, dtype):
-    """(O, I, 3, 3) -> fp32 [9][I][O], rounded to the inputs' dtype first."""
-    return w.to(dtype).float().permute(2, 3, 1, 0).reshape(
-        9, w.shape[1], w.shape[0]).contiguous()
+def _gru_reference(h, x, wz, wr, wq, bz, br, bq, rounded=True):
+    """The TPU kernel's arithmetic (``pallas_gru.py::_kernel``) in plain
+    PyTorch, for the checks: fp32 math on the inputs' values with the
+    weights rounded to the inputs' dtype, r*h rounded to it before the q
+    convolution, h' = h + z (q - h) rounded once (``rounded=False``: the
+    fp32 value before that last rounding).  In fp32 it is ``_gru_torch``'s
+    function."""
+    dt = h.dtype
+    hf, xf = h.float(), x.float()
+    hd = h.shape[-1]
+    zr = nn.sigmoid(nn.conv2d(torch.cat([hf, xf], -1),
+                              torch.cat([wz, wr], 0).to(dt).float(),
+                              torch.cat([bz, br]).float(), padding=1))
+    z, r = zr[..., :hd], zr[..., hd:]
+    rh = (r * hf).to(dt).float()
+    q = torch.tanh(nn.conv2d(torch.cat([rh, xf], -1), wq.to(dt).float(),
+                             bq.float(), padding=1))
+    out = hf + z * (q - hf)
+    return out.to(dt) if rounded else out
 
 
-def _gru_cuda(h, x, wz, wr, wq, bz, br, bq):
+def pack_weights(wz, wr, wq, dtype):
+    """The kernel's weights for inputs of ``dtype``, as bytes: r's 9 taps,
+    z's, q's r*h half's and q's x half's, each tap in the route's layout
+    (``conv_pack``)."""
+    hd = wq.shape[0]
+    return torch.cat([conv_pack.pack(w, dtype) for w in
+                      (wr, wz, wq[:, :hd], wq[:, hd:])])
+
+
+def pack(p, dtype):
+    """The kernel's operands from the GRU ``p`` (as ``gru_step``'s) for
+    inputs of ``dtype``: ``conv_pack.Packed``."""
+    return _pack(p.convz.weight, p.convr.weight, p.convq.weight,
+                 p.convz.bias, p.convr.bias, p.convq.bias, dtype)
+
+
+def _pack(wz, wr, wq, bz, br, bq, dtype):
+    return conv_pack.Packed(dtype, pack_weights(wz, wr, wq, dtype),
+                            torch.cat([bz, br, bq]).detach().float()
+                            .contiguous())
+
+
+def _gru_cuda(h, x, wz, wr, wq, bz, br, bq, packed=None):
     global launches
     B, H, W, hd = h.shape
     dev = h.device
@@ -70,16 +113,18 @@ def _gru_cuda(h, x, wz, wr, wq, bz, br, bq):
             raise ValueError(f"{name} is on {t.device}, h on {dev}")
     if not (h.is_contiguous() and x.is_contiguous()):
         raise ValueError("h and x must be contiguous (B,H,W,hd)")
-    w1 = _pack(torch.cat([wz, wr], 0), h.dtype)           # [9][2hd][2hd]
-    b1 = torch.cat([bz, br]).float().contiguous()
-    w2 = _pack(wq, h.dtype)                               # [9][2hd][hd]
-    b2 = bq.float().contiguous()
     out = torch.empty_like(h)
+    for name, t in (("h", h), ("x", x), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
+    if packed is None:
+        packed = _pack(wz, wr, wq, bz, br, bq, h.dtype)
+    packed.check(h.dtype, dev)
     lib = _kernels.library()
     with torch.cuda.device(dev):
         status = lib.effi_conv_gru(
-            h.data_ptr(), x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), out.data_ptr(), B, H, W, hd,
+            h.data_ptr(), x.data_ptr(), packed.weights.data_ptr(),
+            packed.bias.data_ptr(), out.data_ptr(), B, H, W, hd,
             _DTYPES[h.dtype], _kernels.stream_of(out))
     _kernels.check(status, "conv_gru")
     launches += 1
@@ -103,14 +148,19 @@ class _ConvGRU(torch.autograd.Function):
         return torch.autograd.grad(out, args, g)
 
 
-def gru_step(h, x, p):
+def gru_step(h, x, p, packed=None):
     """ConvGRU step.  h (B,H,W,hd), x (B,H,W,xd); ``p`` holds ``convz``,
     ``convr`` and ``convq``, each with ``weight`` (hd, hd+xd, 3, 3) and
-    ``bias`` (hd,).  Returns h' (B,H,W,hd) in h's dtype."""
+    ``bias`` (hd,).  ``packed``: ``pack(p, h.dtype)``, made once by a
+    caller whose weights no longer change, for the kernel's forward without
+    grad; otherwise the kernel's call packs.  Returns h' (B,H,W,hd) in h's
+    dtype."""
     args = (h, x, p.convz.weight, p.convr.weight, p.convq.weight,
             p.convz.bias, p.convr.bias, p.convq.bias)
     if h.device.type == "cuda":
-        return _ConvGRU.apply(*args)
+        if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+            return _ConvGRU.apply(*args)
+        return _gru_cuda(*args, packed=packed)
     if h.device.type != "cpu":
         raise ValueError(f"unsupported device {h.device}")
     return _gru_torch(*args)

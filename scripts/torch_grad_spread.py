@@ -83,7 +83,7 @@ def routings(torch, cuda_warp, cuda_gru):
         return cuda_warp._views_torch(ref, src, rots.double(), trs.double(),
                                       depth.double()).to(ref.dtype)
 
-    def gru_plain(h, x, p):
+    def gru_plain(h, x, p, packed=None):
         return cuda_gru._gru_torch(h, x, p.convz.weight, p.convr.weight,
                                    p.convq.weight, p.convz.bias,
                                    p.convr.bias, p.convq.bias)

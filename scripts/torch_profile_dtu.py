@@ -9,10 +9,11 @@ config of ``chip_smoke.py`` (B=6, 5 views, 1152x864, 48/8/8, the same
 seeded rig and noise images), and for fp32 and bf16 in turn runs two
 warm-up requests, then traces ``--requests`` requests with
 ``torch.profiler``.  Prints one JSON line per precision: the device time
-by kernel class (K1 warp + correlate, K2 ConvGRU, convolutions, other
-kernels, memory copies), the top kernels by device time, and the device's
-idle share of the traced window (wall time between the synchronised start
-and end, less the union of the device's busy intervals).  ``--out`` also
+by kernel class (K1 warp + correlate, K2 ConvGRU, K4 stem chain,
+convolutions, other kernels, memory copies), the top kernels by device
+time, and the device's idle share of the traced window (wall time between
+the synchronised start and end, less the union of the device's busy
+intervals).  ``--out`` also
 writes the lines to a file.
 """
 
@@ -35,6 +36,7 @@ CLASSES = (
     ("k3_warp_correlate_bwd", ("warp_correlate_bwd_kernel",)),
     ("k1_warp_correlate", ("warp_correlate_kernel",)),
     ("k2_conv_gru", ("conv_gru_kernel",)),
+    ("k4_conv_chain", ("conv_chain_kernel",)),
     ("memcpy_memset", ("Memcpy", "Memset")),
     ("convolution", ("conv", "xmma", "cudnn", "implicit", "gemm",
                      "winograd", "fprop", "cutlass", "sm90_", "sm80_")),

@@ -111,9 +111,9 @@ def chain_calls(monkeypatch):
     calls = []
     real = cuda_conv.conv_bn_relu_chain
 
-    def record(x, specs):
+    def record(x, specs, packed=None):
         calls.append(len(specs))
-        return real(x, specs)
+        return real(x, specs, packed)
     monkeypatch.setattr(cuda_conv, "conv_bn_relu_chain", record)
     return calls
 

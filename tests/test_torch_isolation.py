@@ -51,9 +51,10 @@ def test_scan_sees_the_package():
     assert "chip_smoke.py" in rel
     assert "effi_mvs_plus_tpu_torch/models/effi_mvs.py" in rel
     assert "effi_mvs_plus_tpu_torch/ops/cuda_warp.py" in rel
-    assert "scripts/torch_probe_conv_chain.py" in rel
+    assert "scripts/torch_probe_k2k4.py" in rel
     for new in ("train/trainer.py", "cli/train.py", "utils/logging.py",
                 "config.py", "data/datasets.py", "ops/cuda_conv.py",
                 "fuse/dypcd.py", "fuse/ply.py", "eval/dtu.py",
-                "cli/test_tank.py", "cli/test_dtu.py", "cli/eval_dtu.py"):
+                "cli/test_tank.py", "cli/test_dtu.py", "cli/eval_dtu.py",
+                "ops/conv_pack.py", "ops/rounding_bounds.py"):
         assert f"effi_mvs_plus_tpu_torch/{new}" in rel

@@ -8,8 +8,10 @@ where only PyTorch is installed."""
 import pytest
 import torch
 
-from effi_mvs_plus_tpu_torch.models.blocks import ConvGRU, FeatureNet
-from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
+from effi_mvs_plus_tpu_torch.models.blocks import (ConvGRU, FeatureNet,
+                                                  freeze_kernel_weights)
+from effi_mvs_plus_tpu_torch.ops import (cuda_conv, cuda_gru, cuda_warp,
+                                         rounding_bounds)
 
 pytestmark = pytest.mark.cuda
 
@@ -86,29 +88,72 @@ def test_warp_bwd_kernel_matches_plain(gpu, C, dtype):
         assert ((got.float() - w).abs() <= tol).all()
 
 
-@pytest.mark.parametrize("hd", [16, 32, 48])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gru_kernel_matches_plain(gpu, hd, dtype):
-    g = torch.Generator(device=gpu).manual_seed(1)
-    B, H, W = 2, 19, 37                   # ragged against the 8x16 tile
+def _gru_case(gpu, B, H, W, hd, seed):
+    g = torch.Generator(device=gpu).manual_seed(seed)
     h = torch.tanh(torch.randn((B, H, W, hd), generator=g, device=gpu))
     x = torch.randn((B, H, W, hd), generator=g, device=gpu)
     gru = ConvGRU(hd, hd).to(gpu)
     with torch.no_grad():
         for p in gru.parameters():
             p.copy_(0.1 * torch.randn(p.shape, generator=g, device=gpu))
+    return h, x, gru
+
+
+def _check_gru(got, h, x, gru):
+    """K2 against ``_gru_reference`` (the TPU kernel's rounding points) on
+    the same inputs: |kernel - ref| <= 1e-4 + 2^-8 |ref| [bf16], ref before
+    its last rounding.  In bf16 the two round r*h to bf16 after their own
+    fp32 sums, so an r*h within fp32 noise of a rounding boundary may round
+    either way: the kernel must lie within that tolerance of the range of
+    h' over both roundings of every such r*h
+    (``rounding_bounds.gru_bounds``; the reference itself where an output
+    reads none)."""
+    w = [getattr(gru, k).weight for k in ("convz", "convr", "convq")]
+    b = [getattr(gru, k).bias for k in ("convz", "convr", "convq")]
+    want = cuda_gru._gru_reference(h, x, *w, *b, rounded=False)
+    bf16 = h.dtype == torch.bfloat16
+    tol = 1e-4 + (2.0 ** -8 if bf16 else 0.0) * want.abs()
+    if not bf16:
+        assert ((got.float() - want).abs() <= tol).all()
+        return
+    lo, hi, _ = rounding_bounds.gru_bounds(h, x, *w, *b)
+    g = got.double()
+    assert ((lo - g).clamp(min=0) + (g - hi).clamp(min=0) <= tol).all()
+
+
+@pytest.mark.parametrize("hd", [16, 32, 48])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gru_kernel_matches_plain(gpu, hd, dtype):
+    # 19x37 is ragged against the 8x16 tile, in both directions
+    h, x, gru = _gru_case(gpu, 2, 19, 37, hd, seed=1)
+    h, x = h.to(dtype), x.to(dtype)
     n = cuda_gru.launches
     with torch.inference_mode():
-        got = cuda_gru.gru_step(h.to(dtype), x.to(dtype), gru)
-        w = [getattr(gru, k).weight.to(dtype).float()
-             for k in ("convz", "convr", "convq")]
-        b = [getattr(gru, k).bias for k in ("convz", "convr", "convq")]
-        want = cuda_gru._gru_torch(h.to(dtype).float(), x.to(dtype).float(),
-                                   *w, *b)
+        got = cuda_gru.gru_step(h, x, gru)
+        _check_gru(got, h, x, gru)
     torch.cuda.synchronize()
-    assert cuda_gru.launches == n + 1
-    tol = 1e-4 + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) * want.abs()
-    assert ((got.float() - want).abs() <= tol).all()
+    assert cuda_gru.launches == n + 1 and got.dtype == dtype
+
+
+@pytest.mark.parametrize("hd", [16, 32, 48])
+def test_gru_kernel_bf16_rounds_as_the_tpu_kernel(gpu, hd):
+    """A bf16 step at a larger, ragged map with the checkpoint-like input
+    ranges (h = tanh, x = relu) holds to the TPU kernel's rounding points:
+    r*h rounded to bf16 before the q convolution."""
+    h, x, gru = _gru_case(gpu, 3, 45, 70, hd, seed=hd)
+    h, x = h.to(torch.bfloat16), torch.relu(x).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = cuda_gru.gru_step(h, x, gru)
+        _check_gru(got, h, x, gru)
+        # r*h kept in fp32 (no rounding before q) is another function:
+        # the kernel is nearer the TPU kernel's rounding than to it
+        w = [getattr(gru, k).weight for k in ("convz", "convr", "convq")]
+        b = [getattr(gru, k).bias for k in ("convz", "convr", "convq")]
+        tpu = cuda_gru._gru_reference(h, x, *w, *b, rounded=False)
+        f32 = cuda_gru._gru_torch(h.float(), x.float(),
+                                  *[t.to(torch.bfloat16).float() for t in w],
+                                  *b)
+        assert (got.float() - tpu).abs().mean() < (got.float() - f32).abs().mean()
 
 
 def test_gru_function_backward_matches_plain(gpu):
@@ -200,6 +245,26 @@ def test_feature_net_takes_the_chain_at_inference_only(gpu):
         assert (fused[k] - unfused[k].detach()).abs().max() <= 2e-4
 
 
+def test_frozen_weights_are_packed_once_and_give_the_same_maps(gpu):
+    """After ``freeze_kernel_weights`` the FPN's stem chains and the GRU
+    reuse one packing per dtype; their outputs equal a model that packs at
+    every call."""
+    g = torch.Generator(device=gpu).manual_seed(6)
+    net = FeatureNet((8, 16, 32, 64), (32, 16, 8)).to(gpu).eval()
+    h, x, gru = _gru_case(gpu, 2, 19, 37, 32, seed=6)
+    img = torch.rand((2, 32, 48, 3), generator=g, device=gpu)
+    with torch.inference_mode():
+        want = net(img), gru(h, x)
+        freeze_kernel_weights(net)
+        freeze_kernel_weights(gru)
+        for _ in range(2):
+            got = net(img), gru(h, x)
+    assert len(net.frozen) == 4 and list(gru.frozen) == [torch.float32]
+    for k in want[0]:
+        assert torch.equal(got[0][k], want[0][k])
+    assert torch.equal(got[1], want[1])
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gpu):
     ref = torch.zeros((1, 8, 16, 12), device=gpu)          # C=12
     src = torch.zeros((1, 1, 8, 16, 12), device=gpu)
@@ -210,3 +275,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gpu):
     h = torch.zeros((1, 8, 16, 24), device=gpu)            # hd=24
     with pytest.raises(ValueError):
         cuda_gru.gru_step(h, h, ConvGRU(24, 24).to(gpu))
+    # cp.async needs 16-byte aligned maps
+    h = torch.zeros(1 + 8 * 16 * 16, device=gpu)[1:].view(1, 8, 16, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_gru.gru_step(h, h, ConvGRU(16, 16).to(gpu))
+    x = torch.zeros(1 + 8 * 16 * 8, device=gpu)[1:].view(1, 8, 16, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_conv.conv_bn_relu_chain(x, _chain_specs((8, 8, 8), None, gpu))
+    # weights packed for another dtype
+    x = torch.zeros((1, 8, 16, 8), device=gpu)
+    specs = _chain_specs((8, 8, 8), None, gpu)
+    with pytest.raises(ValueError, match="packed for"):
+        cuda_conv.conv_bn_relu_chain(
+            x, specs, cuda_conv.pack(specs, torch.bfloat16))
