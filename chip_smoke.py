@@ -21,8 +21,15 @@ imports nothing of JAX.  It
    and K4 in bf16 within the tolerance of the range that rounding gives,
    ``ops/rounding_bounds.py``), with the kernel and plain times from CUDA
    events (K2 and K4 also packing their weights at each call, as a model
-   whose weights are not frozen does); K1 and K3 also on a rig that
-   projects off the image and one that sees hypotheses from behind;
+   whose weights are not frozen does); K1 (at DTU stages 1 and 2, so
+   both its kernels) and K3 also on a rig that projects off the image
+   and one that sees hypotheses from behind; K1's
+   and K3's entries carry ``window_share``, the share of their texel
+   reads (K3: adds) that the shared-memory windows served, from the
+   kernels' own counters, and K3's ``global_atomics``, the adds that
+   reached device memory (outside the windows, and the windows' flush),
+   beside ``atomics``, one a tap and channel (every add of a scatter
+   straight into device memory);
 3. drives the serving path: ``InferenceEngine(device="cuda")`` with the
    shipped DTU weights at the DTU eval config answers fp32 and bf16
    requests and writes a scene with ``save_scene_depths``, with the
@@ -418,74 +425,98 @@ def forward_kernel_phases(torch, sd, gen):
         for s in range(3):
             for dname, dtype in (("float32", torch.float32),
                                  ("bfloat16", torch.bfloat16)):
-                ref, src, rots, trs, depth = stage_inputs(
-                    torch, geometry, cfg, proj_ms, dv, s, dtype, gen)
-                B, V, D = src.shape[0], src.shape[1], depth.shape[1]
-                h, w, C = ref.shape[1], ref.shape[2], ref.shape[3]
-
-                def k1():
-                    return cuda_warp.warp_correlate_views(ref, src, rots,
-                                                          trs, depth)
-
-                def p1():
-                    return cuda_warp._views_torch(ref.float(), src.float(),
-                                                  rots, trs, depth)
-                err = check_kernel("warp_correlate",
-                                   f"{cname} stage{s + 1} {dname}",
-                                   k1(), p1(), dname)
-                esz = ref.element_size()
-                n_out = B * V * D * h * w
-                byts = (ref.numel() + src.numel() + n_out) * esz \
-                    + unique_bytes(depth) + (rots.numel() + trs.numel()) * 4
-                bms, bby = bound(byts, n_out * (10 * C + 16), dname)
-                entries.append(dict(
-                    name="warp_correlate", route="cuda",
-                    source="effi_mvs_plus_tpu_torch/csrc/warp_correlate.cu",
-                    replaces="effi_mvs_plus_tpu/ops/pallas_warp.py:427",
-                    config=cname, stage=s + 1, dtype=dname,
-                    shape=f"B{B} V{V} D{D} {h}x{w} C{C}",
-                    launches_per_forward=3, max_abs_err=err,
-                    ms=median_ms(torch, k1, 7),
-                    plain_ms=median_ms(torch, p1, 3),
-                    bound_ms=bms, bound_by=bby, library_ms=None))
-                del ref, src, depth
-
+                entries.append(warp_entry(torch, gen, cname, cfg, proj_ms,
+                                          dv, s, dname, dtype))
+                B, h, w = (cfg["B"], cfg["H"] // 2 ** (3 - s),
+                           cfg["W"] // 2 ** (3 - s))
                 entries.append(gru_entry(torch, sd, gen, cname, (B, h, w),
                                          s, dname, dtype))
                 log({"phase": "kernels", **entries[-2]})
                 log({"phase": "kernels", **entries[-1]})
         torch.cuda.empty_cache()
 
-    # K1 on rigs that leave the image and that see hypotheses from behind
+    # K1 on rigs that leave the image and that see hypotheses from behind,
+    # at stage 1 (the expanded sweep through the windowed kernel) and stage
+    # 2 (per-pixel depths through the direct kernel)
     cfg = CONFIGS["dtu"]
     proj_ms, dv = rig(cfg, camio)
-    ref, src, rots, trs, depth = stage_inputs(
-        torch, geometry, cfg, proj_ms, dv, 1, torch.float32, gen)
-    h, w = ref.shape[1], ref.shape[2]
-    # off_image: trans is in pixels x depth, so this shifts the projections
-    # by 40% / 20% of the map at a mid-range depth.  behind: the negated
-    # camera sees every hypothesis at z < 0 and projects each ref pixel to
-    # the same place (grid_sample semantics cull nothing behind a camera),
-    # so it must reproduce the ordinary rig's correlations exactly.
-    wild = {"off_image": (rots, trs + torch.tensor(
-                [0.4 * w * 680.0, 0.2 * h * 680.0, 0.0], device="cuda")),
-            "behind": (-rots, -trs)}
-    ordinary = cuda_warp.warp_correlate_views(ref, src, rots, trs, depth)
-    for rname, (r_, t_) in wild.items():
-        got = cuda_warp.warp_correlate_views(ref, src, r_, t_, depth)
-        err = check_kernel("warp_correlate", rname, got,
-                           cuda_warp._views_torch(ref, src, r_, t_, depth),
-                           "float32")
-        zero = float((got == 0).float().mean())
-        if rname == "off_image" and not 0.05 < zero < 0.95:
-            raise AssertionError(f"K1 off_image: zero share {zero}")
-        if rname == "behind" and not torch.equal(got, ordinary):
-            raise AssertionError("K1 behind: differs from the ordinary rig")
-        log({"phase": "kernel_rig", "rig": rname, "max_abs_err": err,
-             "zero_share": zero})
-    del ref, src, depth
-    torch.cuda.empty_cache()
+    for s in (0, 1):
+        ref, src, rots, trs, depth = stage_inputs(
+            torch, geometry, cfg, proj_ms, dv, s, torch.float32, gen)
+        h, w = ref.shape[1], ref.shape[2]
+        # off_image: trans is in pixels x depth, so this shifts the
+        # projections by 40% / 20% of the map at a mid-range depth.
+        # behind: the negated camera sees every hypothesis at z < 0 and
+        # projects each ref pixel to the same place (grid_sample semantics
+        # cull nothing behind a camera), so it must reproduce the ordinary
+        # rig's correlations exactly.
+        wild = {"off_image": (rots, trs + torch.tensor(
+                    [0.4 * w * 680.0, 0.2 * h * 680.0, 0.0], device="cuda")),
+                "behind": (-rots, -trs)}
+        ordinary = cuda_warp.warp_correlate_views(ref, src, rots, trs, depth)
+        for rname, (r_, t_) in wild.items():
+            got = cuda_warp.warp_correlate_views(ref, src, r_, t_, depth)
+            err = check_kernel("warp_correlate", f"{rname} stage{s + 1}", got,
+                               cuda_warp._views_torch(ref, src, r_, t_, depth),
+                               "float32")
+            zero = float((got == 0).float().mean())
+            if rname == "off_image" and not 0.05 < zero < 0.95:
+                raise AssertionError(
+                    f"K1 off_image stage{s + 1}: zero share {zero}")
+            if rname == "behind" and not torch.equal(got, ordinary):
+                raise AssertionError(
+                    f"K1 behind stage{s + 1}: differs from the ordinary rig")
+            log({"phase": "kernel_rig", "rig": rname, "stage": s + 1,
+                 "max_abs_err": err, "zero_share": zero})
+        del ref, src, depth, ordinary, got
+        torch.cuda.empty_cache()
     return entries
+
+
+def window_share(stats):
+    """The share of taps (K3: adds) served from shared-memory windows, of
+    a kernel's counters (from the windows, from device memory)."""
+    window, device = int(stats[0]), int(stats[1])
+    return window / max(1, window + device)
+
+
+def warp_entry(torch, gen, cname, cfg, proj_ms, dv, s, dname, dtype):
+    """K1 at stage s (0-based) of a config: held against its plain version
+    (``check_kernel``) and timed; with the share of its taps read from the
+    shared-memory windows.  Returns its entry."""
+    from effi_mvs_plus_tpu_torch.core import geometry
+    from effi_mvs_plus_tpu_torch.ops import cuda_warp
+    ref, src, rots, trs, depth = stage_inputs(
+        torch, geometry, cfg, proj_ms, dv, s, dtype, gen)
+    B, V, D = src.shape[0], src.shape[1], depth.shape[1]
+    h, w, C = ref.shape[1], ref.shape[2], ref.shape[3]
+
+    def k1():
+        return cuda_warp.warp_correlate_views(ref, src, rots, trs, depth)
+
+    def p1():
+        return cuda_warp._views_torch(ref.float(), src.float(), rots, trs,
+                                      depth)
+    err = check_kernel("warp_correlate", f"{cname} stage{s + 1} {dname}",
+                       k1(), p1(), dname)
+    stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+    cuda_warp._views_cuda(ref, src, rots, trs, depth, stats)
+    esz = ref.element_size()
+    n_out = B * V * D * h * w
+    byts = (ref.numel() + src.numel() + n_out) * esz \
+        + unique_bytes(depth) + (rots.numel() + trs.numel()) * 4
+    bms, bby = bound(byts, n_out * (10 * C + 16), dname)
+    return dict(
+        name="warp_correlate", route="cuda",
+        source="effi_mvs_plus_tpu_torch/csrc/warp_correlate.cu",
+        replaces="effi_mvs_plus_tpu/ops/pallas_warp.py:427",
+        config=cname, stage=s + 1, dtype=dname,
+        shape=f"B{B} V{V} D{D} {h}x{w} C{C}",
+        launches_per_forward=3, max_abs_err=err,
+        window_share=window_share(stats), texel_reads=int(stats.sum()),
+        ms=median_ms(torch, k1, 21),
+        plain_ms=median_ms(torch, p1, 3),
+        bound_ms=bms, bound_by=bby, library_ms=None)
 
 
 def gru_entry(torch, sd, gen, cname, bhw, s, dname, dtype):
@@ -705,8 +736,8 @@ def bwd_kernel_phases(torch, gen):
     from effi_mvs_plus_tpu_torch.data import cams as camio
     from effi_mvs_plus_tpu_torch.ops import cuda_warp
 
-    def check(what, ref, src, rots, trs, depth, g, dname):
-        got = cuda_warp._views_bwd_cuda(ref, src, rots, trs, depth, g)
+    def check(what, ref, src, rots, trs, depth, g, dname, stats=None):
+        got = cuda_warp._views_bwd_cuda(ref, src, rots, trs, depth, g, stats)
         again = cuda_warp._views_bwd_cuda(ref, src, rots, trs, depth, g)
         want = plain_bwd(torch, cuda_warp, ref, src, rots, trs, depth)(g)
         scale = max(1.0, *(float(t.abs().max()) for t in want))
@@ -731,8 +762,9 @@ def bwd_kernel_phases(torch, gen):
                 g = torch.randn((B, V, D, h, w), generator=gen,
                                 device="cuda").to(dtype)
                 what = f"{cname} stage{s + 1} {dname}"
+                stats = torch.zeros(3, dtype=torch.int64, device="cuda")
                 _, err, scale, rerun = check(what, ref, src, rots, trs,
-                                             depth, g, dname)
+                                             depth, g, dname, stats)
                 taps = valid_taps(torch, geometry, rots, trs, depth, h, w)
                 esz = ref.element_size()
                 byts = (2 * (ref.numel() + src.numel()) + g.numel()) * esz \
@@ -747,10 +779,12 @@ def bwd_kernel_phases(torch, gen):
                     config=cname, stage=s + 1, dtype=dname,
                     shape=f"B{B} V{V} D{D} {h}x{w} C{C}",
                     launches_per_forward=3, atomics=taps * C,
+                    global_atomics=int(stats[1] + stats[2]),
+                    window_share=window_share(stats),
                     max_abs_err=err, tolerance=ATOL["warp_correlate_bwd"]
                     * scale, run_to_run_max_abs=rerun,
                     ms=median_ms(torch, lambda: cuda_warp._views_bwd_cuda(
-                        ref, src, rots, trs, depth, g), 7),
+                        ref, src, rots, trs, depth, g), 21),
                     plain_ms=median_ms(torch, lambda: grad(g), 3),
                     bound_ms=bms, bound_by=bby, library_ms=None))
                 log({"phase": "kernels", **entries[-1]})

@@ -69,20 +69,33 @@ __device__ __forceinline__ Ray make_ray(const float* R, const float* t,
 
 // The four bilinear taps at one hypothesis, in the reference order
 // (x0,y0), (x1,y0), (x0,y1), (x1,y1): flat pixel index (-1 outside the
-// image; an int is formed only for a tap inside) and weight.
+// image; an int is formed only for a tap inside) and weight; and the
+// corner (x0, y0) of the 2x2 square, formed only where one of its taps
+// lies in the image (`any`; then x0 >= -1 and y0 >= -1), and whether
+// each tap lies in the image (`in`, the same test as idx >= 0).
 struct Taps {
   int idx[4];
   float w[4];
+  int x0, y0;
+  bool any;
+  bool in[4];
 };
 
-__device__ __forceinline__ Taps taps_at(const Ray& r, float z_d, int H,
-                                        int W) {
+// The source pixel coordinates of the ray at depth z_d.
+__device__ __forceinline__ void project(const Ray& r, float z_d, float& px,
+                                        float& py) {
   const float X = r.x * z_d + r.t0;
   const float Y = r.y * z_d + r.t1;
   float Z = r.z * z_d + r.t2;
   if (Z == 0.0f) Z = Z + 1e-8f;
-  const float px = X / Z;
-  const float py = Y / Z;
+  px = X / Z;
+  py = Y / Z;
+}
+
+__device__ __forceinline__ Taps taps_at(const Ray& r, float z_d, int H,
+                                        int W) {
+  float px, py;
+  project(r, z_d, px, py);
   const float x0f = floorf(px), y0f = floorf(py);
   const float wx = px - x0f, wy = py - y0f;
   // bounds on the float coordinates: no int overflow for far taps
@@ -99,6 +112,13 @@ __device__ __forceinline__ Taps taps_at(const Ray& r, float z_d, int H,
   tp.idx[1] = (vx1 && vy0) ? (int)y0f * W + (int)(x0f + 1.0f) : -1;
   tp.idx[2] = (vx0 && vy1) ? (int)(y0f + 1.0f) * W + (int)x0f : -1;
   tp.idx[3] = (vx1 && vy1) ? (int)(y0f + 1.0f) * W + (int)(x0f + 1.0f) : -1;
+  tp.in[0] = vx0 && vy0;
+  tp.in[1] = vx1 && vy0;
+  tp.in[2] = vx0 && vy1;
+  tp.in[3] = vx1 && vy1;
+  tp.any = (vx0 || vx1) && (vy0 || vy1);
+  tp.x0 = tp.any ? (int)x0f : 0;
+  tp.y0 = tp.any ? (int)y0f : 0;
   return tp;
 }
 

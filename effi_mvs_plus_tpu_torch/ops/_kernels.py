@@ -28,7 +28,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = ("warp_correlate.cu", "warp_correlate_bwd.cu", "conv_gru.cu",
            "conv_chain.cu")
-HEADERS = ("warp_project.cuh", "conv3x3_tile.cuh")
+HEADERS = ("warp_project.cuh", "warp_window.cuh", "conv3x3_tile.cuh")
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC")
@@ -40,9 +40,10 @@ _L = ctypes.c_longlong
 # C entry points and their argument types (csrc/*.cu, extern "C")
 SIGNATURES = {
     "effi_warp_correlate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _L, _L, _L, _L, _L, _L, _I, _P],
-    "effi_warp_correlate_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P],
+                            _L, _L, _L, _L, _L, _L, _I, _I, _P, _I, _P],
+    "effi_warp_correlate_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I,
+                                _I, _P, _I, _P],
     "effi_conv_gru": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "effi_conv_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }

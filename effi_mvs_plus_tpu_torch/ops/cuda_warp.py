@@ -16,8 +16,12 @@ the warp are already detached.
 The TPU kernel copies a static window of the source map into VMEM and so
 drops taps that fall outside it; its region window, rung ladder, fit
 predicates, overflow patch and XLA demotion exist for that alone.  The
-CUDA kernel gathers from device memory, which is exact, so there is one
-path.
+CUDA kernels (``csrc/warp_window.cuh``) take each block's window from
+its own taps, a tile of ref pixels by a chunk of hypotheses, and serve a
+tap outside a clipped window from device memory, which is exact, so there
+is one path.  ``window_plan`` sizes the chunks and windows of both
+launches; ``ops/warp_window.py`` emulates that decomposition in plain
+PyTorch for the CPU tests.
 """
 
 from __future__ import annotations
@@ -34,6 +38,42 @@ bwd_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CHANNELS = (8, 16, 32)
+
+# The kernels' decomposition (csrc/warp_window.cuh): a block owns a
+# TILE_H x TILE_W tile of ref pixels of one (batch, view) and walks the
+# hypotheses a chunk at a time, each chunk through a window of the source
+# map in shared memory: the bounding box of the chunk's taps, clipped to
+# the window budget.  K1 takes K1_CHUNK hypotheses a chunk and
+# double-buffers two windows of K1_WINDOW_TEXELS where the sweep takes
+# more than one chunk and texels have 64 bytes or more (the stage-1
+# sweep); elsewhere it reads every tap from device memory, where a gather
+# costs less than staging (``window_plan``).
+# K3 takes K3_CHUNK (at most MAX_CHUNK in csrc/warp_window.cuh) and
+# accumulates d_src in one fp32 window of K3_WINDOW_TEXELS beside its
+# records of 24 bytes a (pixel, hypothesis).
+TILE_H, TILE_W = 8, 16
+K1_CHUNK, K3_CHUNK = 16, 8
+K1_WINDOW_TEXELS = 256
+K3_WINDOW_TEXELS = 256
+
+
+def _window_stride(C, esz):
+    """K1's texel stride in shared memory, in elements: an odd number of
+    16-byte units (``window_stride`` in csrc/warp_correlate.cu)."""
+    return ((C * esz // 16) | 1) * (16 // esz)
+
+
+def window_plan(kernel, C, dtype, D):
+    """(hypotheses a chunk, texels a window) of a K1 (``"fwd"``) or K3
+    (``"bwd"``) launch at D hypotheses on features of C channels and
+    ``dtype``."""
+    if kernel == "fwd":
+        esz = torch.empty((), dtype=dtype).element_size()
+        windows = D > K1_CHUNK and C * esz >= 64
+        return min(D, K1_CHUNK), K1_WINDOW_TEXELS if windows else 0
+    if kernel == "bwd":
+        return min(D, K3_CHUNK), K3_WINDOW_TEXELS
+    raise ValueError(f"unknown kernel {kernel!r}")
 
 
 def _views_torch(ref_fea, src_feas, rots, transs, depth):
@@ -85,18 +125,34 @@ def _check_inputs(ref_fea, src_feas, rots, transs, depth):
                     ("transs", transs)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, ref_fea on {dev}")
+    if H >= 2 ** 15 or W >= 2 ** 15:
+        raise ValueError(f"maps must be under 32768 a side, got {H}x{W}")
     _check_aligned("ref_fea", ref_fea, 3)
     _check_aligned("src_feas", src_feas, 4)
     return (rots.to(torch.float32).contiguous(),
             transs.to(torch.float32).contiguous())
 
 
-def _views_cuda(ref_fea, src_feas, rots, transs, depth):
+def _stats_ptr(stats, n, dev):
+    """The device address of a counter tensor of n int64 for a kernel to
+    add to, or None."""
+    if stats is None:
+        return None
+    if stats.dtype != torch.int64 or stats.numel() != n \
+            or stats.device != dev or not stats.is_contiguous():
+        raise ValueError(f"stats must be {n} contiguous int64 on {dev}")
+    return stats.data_ptr()
+
+
+def _views_cuda(ref_fea, src_feas, rots, transs, depth, stats=None):
+    """K1.  ``stats``, an int64 tensor of 2 on the card, gains the taps
+    read from the windows and from device memory."""
     global launches
     rots, transs = _check_inputs(ref_fea, src_feas, rots, transs, depth)
     B, H, W, C = ref_fea.shape
     V, D = src_feas.shape[1], depth.shape[1]
     dev = ref_fea.device
+    dc, cap = window_plan("fwd", C, ref_fea.dtype, D)
     out = torch.empty((B, V, D, H, W), dtype=ref_fea.dtype, device=dev)
     lib = _kernels.library()
     with torch.cuda.device(dev):
@@ -104,15 +160,18 @@ def _views_cuda(ref_fea, src_feas, rots, transs, depth):
             ref_fea.data_ptr(), src_feas.data_ptr(), rots.data_ptr(),
             transs.data_ptr(), depth.data_ptr(), out.data_ptr(),
             B, V, D, H, W, C, ref_fea.stride(0), src_feas.stride(0),
-            *depth.stride(), _DTYPES[ref_fea.dtype], _kernels.stream_of(out))
+            *depth.stride(), dc, cap, _stats_ptr(stats, 2, dev),
+            _DTYPES[ref_fea.dtype], _kernels.stream_of(out))
     _kernels.check(status, "warp_correlate")
     launches += 1
     return out
 
 
-def _views_bwd_cuda(ref_fea, src_feas, rots, transs, depth, g):
+def _views_bwd_cuda(ref_fea, src_feas, rots, transs, depth, g, stats=None):
     """K3: (d_ref (B,H,W,C), d_src (B,V,H,W,C)) in the features' dtype for
-    the cotangent g (B,V,D,H,W) of ``_views_cuda``'s output."""
+    the cotangent g (B,V,D,H,W) of ``_views_cuda``'s output.  ``stats``,
+    an int64 tensor of 3 on the card, gains the adds into the windows,
+    into d_src directly and of the windows' flush."""
     global bwd_launches
     rots, transs = _check_inputs(ref_fea, src_feas, rots, transs, depth)
     B, H, W, C = ref_fea.shape
@@ -121,16 +180,19 @@ def _views_bwd_cuda(ref_fea, src_feas, rots, transs, depth, g):
     if tuple(g.shape) != (B, V, D, H, W) or g.device != dev:
         raise ValueError(f"cotangent {tuple(g.shape)} on {g.device} does not "
                          f"match the output ({B},{V},{D},{H},{W}) on {dev}")
+    dc, cap = window_plan("bwd", C, ref_fea.dtype, D)
     g = g.to(ref_fea.dtype).contiguous()
     d_ref = torch.empty((B, H, W, C), dtype=ref_fea.dtype, device=dev)
+    part = torch.empty((B, V, H, W, C), dtype=torch.float32, device=dev)
     d_src = torch.zeros((B, V, H, W, C), dtype=torch.float32, device=dev)
     lib = _kernels.library()
     with torch.cuda.device(dev):
         status = lib.effi_warp_correlate_bwd(
             ref_fea.data_ptr(), src_feas.data_ptr(), rots.data_ptr(),
             transs.data_ptr(), depth.data_ptr(), g.data_ptr(),
-            d_ref.data_ptr(), d_src.data_ptr(), B, V, D, H, W, C,
-            ref_fea.stride(0), src_feas.stride(0), *depth.stride(),
+            d_ref.data_ptr(), part.data_ptr(), d_src.data_ptr(),
+            B, V, D, H, W, C, ref_fea.stride(0), src_feas.stride(0),
+            *depth.stride(), dc, cap, _stats_ptr(stats, 3, dev),
             _DTYPES[ref_fea.dtype], _kernels.stream_of(d_ref))
     _kernels.check(status, "warp_correlate_bwd")
     bwd_launches += 1

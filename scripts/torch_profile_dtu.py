@@ -33,8 +33,10 @@ import chip_smoke  # noqa: E402  (the DTU rig and config)
 
 # kernel-name markers of each class, tested in this order
 CLASSES = (
-    ("k3_warp_correlate_bwd", ("warp_correlate_bwd_kernel",)),
-    ("k1_warp_correlate", ("warp_correlate_kernel",)),
+    ("k3_warp_correlate_bwd", ("warp_correlate_bwd_kernel",
+                               "dref_sum_kernel")),
+    ("k1_warp_correlate", ("warp_correlate_kernel",
+                           "warp_correlate_direct_kernel")),
     ("k2_conv_gru", ("conv_gru_kernel",)),
     ("k4_conv_chain", ("conv_chain_kernel",)),
     ("memcpy_memset", ("Memcpy", "Memset")),

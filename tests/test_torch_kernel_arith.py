@@ -14,13 +14,18 @@
   tap, the padded input channels), and the tap sum over them equals
   ``F.conv2d`` on the original weights (float64, 1e-12), for each K2
   width and each chain of ``cuda_conv.CHAINS``, both dtypes.
-* ``ops/_kernels.py`` builds from every file under ``csrc/``.
+* ``ops/_kernels.py`` builds from every file under ``csrc/``, and the
+  profile scripts count each of its kernels in a kernel class.
 * ``ops/rounding_bounds.py``, the range of bf16 results the card's checks
   accept: it holds two fp32 summation orders of the same arithmetic, is
   the exact value away from rounding boundaries, and refuses a wrong
   output.
 * ``models.freeze_kernel_weights``: a frozen ConvGRU or FPN folds and packs
   once per dtype and computes what an unfrozen one does."""
+
+import pathlib
+import re
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -228,6 +233,20 @@ def test_chain_routes_follow_the_channel_counts():
 def test_kernel_build_covers_every_source_file():
     on_disk = {p.name for p in _kernels.CSRC.iterdir() if p.is_file()}
     assert set(_kernels.SOURCES + _kernels.HEADERS) == on_disk
+
+
+def test_profiles_classify_every_kernel():
+    """scripts/torch_profile_dtu.py (and _train.py, which imports it)
+    count every __global__ function under csrc/ in a kernel class."""
+    sys.path.insert(0, str(pathlib.Path(__file__).parents[1] / "scripts"))
+    from torch_profile_dtu import classify
+    names = set()
+    for f in _kernels.SOURCES:
+        names |= set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                                (_kernels.CSRC / f).read_text()))
+    assert len(names) >= 6
+    assert {n: classify(n + "<float, 32>") for n in names
+            if classify(n + "<float, 32>") == "other"} == {}
 
 
 # ---- the range of bf16 results the checks on the card accept ----

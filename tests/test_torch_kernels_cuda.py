@@ -34,24 +34,74 @@ def _rig(B, V, dev):
     return rots, trs
 
 
-@pytest.mark.parametrize("C", [8, 16, 32])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_warp_kernel_matches_plain(gpu, C, dtype):
-    g = torch.Generator(device=gpu).manual_seed(0)
-    B, V, D, H, W = 2, 3, 5, 20, 36
+# (B, V, D, H, W, window texels, depths): a few per-pixel hypotheses at
+# the launches' budget (K1's direct kernel); an expanded sweep of several
+# chunks through windows of six texels, so that most taps are read from
+# and added to device memory; a sweep of several chunks at per-pixel
+# depths in no order, whose taps may leave K1's box of each ray's first
+# and last hypothesis; the full stage-1 DTU width on the expanded sweep
+WARP_CASES = {"small": (2, 3, 5, 20, 36, None, "per_pixel"),
+              "overflow": (2, 3, 40, 20, 36, 6, "sweep"),
+              "unsorted": (2, 3, 40, 20, 36, None, "per_pixel"),
+              "dtu_stage1": (1, 4, 48, 108, 144, None, "sweep")}
+# atol of the kernels against the plain versions: 1e-4 at the small maps,
+# 1e-3 at 144 px wide maps, where a coordinate's rounding differs by more
+# between the plain einsum and the kernels' FMAs (chip_smoke.py's ATOL)
+WARP_ATOL = {"small": 1e-4, "overflow": 1e-4, "unsorted": 1e-4,
+             "dtu_stage1": 1e-3}
+
+
+def _warp_case(gpu, monkeypatch, case, C, dtype, seed):
+    B, V, D, H, W, budget, depths = WARP_CASES[case]
+    if budget is not None:
+        monkeypatch.setattr(cuda_warp, "K1_WINDOW_TEXELS", budget)
+        monkeypatch.setattr(cuda_warp, "K3_WINDOW_TEXELS", budget)
+    g = torch.Generator(device=gpu).manual_seed(seed)
     feats = torch.randn((B, V + 1, H, W, C), generator=g, device=gpu)
     feats = feats.to(dtype)
-    ref, src = feats[:, 0], feats[:, 1:]
     rots, trs = _rig(B, V, gpu)
-    depth = 400.0 + 500.0 * torch.rand((B, D, H, W), generator=g, device=gpu)
+    if depths == "sweep":
+        # read through its strides, as the model hands the stage-1 sweep
+        depth = torch.linspace(400.0, 900.0, D, device=gpu)[
+            None, :, None, None].expand(B, D, H, W)
+    else:
+        depth = 400.0 + 500.0 * torch.rand((B, D, H, W), generator=g,
+                                           device=gpu)
+    return g, feats[:, 0], feats[:, 1:], rots, trs, depth
+
+
+def _check_window_stats(case, stats, windows=True):
+    """Texels (adds) served from the windows and from device memory: a
+    budget of six texels cannot hold a chunk's footprint; without windows
+    (K1's small texels) every texel comes from device memory."""
+    window, device = int(stats[0]), int(stats[1])
+    assert window + device > 0
+    if not windows:
+        assert window == 0
+    elif case == "overflow":
+        assert device > window > 0
+
+
+@pytest.mark.parametrize("case", sorted(WARP_CASES))
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_kernel_matches_plain(gpu, monkeypatch, case, C, dtype):
+    _, ref, src, rots, trs, depth = _warp_case(gpu, monkeypatch, case, C,
+                                               dtype, 0)
     n = cuda_warp.launches
     got = cuda_warp.warp_correlate_views(ref, src, rots, trs, depth)
     assert cuda_warp.launches == n + 1
     want = cuda_warp._views_torch(ref.float(), src.float(), rots, trs, depth)
+    stats = torch.zeros(2, dtype=torch.int64, device=gpu)
+    again = cuda_warp._views_cuda(ref, src, rots, trs, depth, stats)
     torch.cuda.synchronize()
     assert got.dtype == dtype
-    tol = 1e-4 + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) * want.abs()
+    tol = WARP_ATOL[case] \
+        + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) * want.abs()
     assert ((got.float() - want).abs() <= tol).all()
+    assert torch.equal(got, again)
+    windows = cuda_warp.window_plan("fwd", C, dtype, depth.shape[1])[1] > 0
+    _check_window_stats(case, stats, windows)
 
 
 def _bwd_plain(ref, src, rots, trs, depth, g):
@@ -62,30 +112,40 @@ def _bwd_plain(ref, src, rots, trs, depth, g):
     return r.grad, s.grad
 
 
+@pytest.mark.parametrize("case", sorted(WARP_CASES))
 @pytest.mark.parametrize("C", [8, 16, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_warp_bwd_kernel_matches_plain(gpu, C, dtype):
-    g_ = torch.Generator(device=gpu).manual_seed(2)
-    B, V, D, H, W = 2, 3, 5, 20, 36
-    feats = torch.randn((B, V + 1, H, W, C), generator=g_, device=gpu)
-    feats = feats.to(dtype)
-    ref = feats[:, 0].clone().requires_grad_()
-    src = feats[:, 1:].clone().requires_grad_()
-    rots, trs = _rig(B, V, gpu)
-    # an expanded sweep, read through its strides as the model hands it
-    depth = torch.linspace(400.0, 900.0, D, device=gpu)[None, :, None, None] \
-        .expand(B, D, H, W)
-    g = torch.randn((B, V, D, H, W), generator=g_, device=gpu).to(dtype)
+def test_warp_bwd_kernel_matches_plain(gpu, monkeypatch, case, C, dtype):
+    g_, ref, src, rots, trs, depth = _warp_case(gpu, monkeypatch, case, C,
+                                                dtype, 2)
+    ref, src = ref.clone().requires_grad_(), src.clone().requires_grad_()
+    g = torch.randn((*src.shape[:2], *depth.shape[1:]), generator=g_,
+                    device=gpu).to(dtype)
     n, nb = cuda_warp.launches, cuda_warp.bwd_launches
     cuda_warp.warp_correlate_views(ref, src, rots, trs, depth).backward(g)
     assert (cuda_warp.launches, cuda_warp.bwd_launches) == (n + 1, nb + 1)
     want = _bwd_plain(ref.detach(), src.detach(), rots, trs, depth, g)
+    stats = torch.zeros(3, dtype=torch.int64, device=gpu)
+    again = cuda_warp._views_bwd_cuda(ref.detach(), src.detach(), rots, trs,
+                                      depth, g, stats)
     torch.cuda.synchronize()
-    for got, w in zip((ref.grad, src.grad), want):
+    for got, w, rerun in zip((ref.grad, src.grad), want, again):
         assert got.dtype == dtype and got.shape == w.shape
-        tol = 1e-4 * max(1.0, float(w.abs().max())) \
-            + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) * w.abs()
+        atol = WARP_ATOL[case] * max(1.0, float(w.abs().max()))
+        tol = atol + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) * w.abs()
         assert ((got.float() - w).abs() <= tol).all()
+        # d_src's atomics add in no fixed order: the rerun holds to the
+        # same tolerance, and in fp32 lies within atol of the first run (in
+        # bf16 a sum at a rounding boundary may round either way)
+        assert ((rerun.float() - w).abs() <= tol).all()
+        if dtype == torch.float32:
+            assert float((got - rerun).abs().max()) <= atol
+    # d_ref: per-view partials summed in a fixed order, the same bits
+    assert torch.equal(ref.grad, again[0])
+    _check_window_stats(case, stats)
+    assert int(stats[2]) <= int(stats[0])
+    if case == "dtu_stage1":
+        assert int(stats[1]) == 0 < int(stats[2])
 
 
 def _gru_case(gpu, B, H, W, hd, seed):
