@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on a GPU: serving,
-training and the Tanks & Temples reconstruction chain.
+training, the Tanks & Temples reconstruction chain, BlendedMVS
+fine-tuning and multi-process parallelism.
 
     python3 chip_smoke.py
 
@@ -11,10 +12,11 @@ imports nothing of JAX.  It
    kernels from ``effi_mvs_plus_tpu_torch/csrc`` with nvcc;
 2. runs K1 (warp + correlate) and K2 (ConvGRU step) at every stage shape
    of the DTU eval config (B=6, 5 views, 1152x864, 48/8/8), of the T&T
-   config (B=1, 11 views, 1920x1056, 96/8/8) and of the DTU training
-   config (B=4, 5 views, 640x512, 48/8/8), and K3 (the warp's backward)
-   at every stage shape of the DTU training and eval configs, in fp32 and
-   bf16,
+   config (B=1, 11 views, 1920x1056, 96/8/8), of the DTU training
+   config (B=4, 5 views, 640x512, 48/8/8) and of the BlendedMVS
+   fine-tuning config (B=8, 7 views, 768x576, 96/8/8), and K3 (the warp's
+   backward) at every stage shape of the DTU training, DTU eval and
+   fine-tuning configs, in fp32 and bf16,
    and holds each against its plain PyTorch version on the same inputs
    (K3: autograd of the plain warp; K2: ``_gru_reference``, the TPU
    kernel's rounding points, with r*h rounded to the inputs' dtype; K2
@@ -58,9 +60,25 @@ imports nothing of JAX.  It
    bf16) and ``fuse_scene_tank`` (the deployed Horse filter) into a PLY, scores it against the plane with ``eval/dtu.py``,
    and holds one fp32 forward with every kernel against one with every
    plain version;
-7. prints a ``{"kernels": [...]}`` line (K2 and K4 entries name the
-   CUDA route of each layer in ``cuda_route``: ``mma`` on the tensor
-   cores, ``fma`` on the CUDA cores), then the device line last.
+7. drives BlendedMVS fine-tuning: renders a textured plane at 768x576
+   for 17 cameras into a BlendedMVS tree with its depths, runs
+   ``cli/train.py``'s ``main`` with ``--mode finetune`` (the
+   blend_finetune profile at full width, fp32, from model_dtu.npz; 3
+   epochs of 2 steps, launch counts reset just before and read just
+   after, each step timed by CUDA events: samples/s and peak memory),
+   holds one step at that config with the kernels against one with the
+   plain versions, and runs ``--mode test`` (K4 in its eval forwards) and
+   ``--mode profile`` (a ``torch.profiler`` trace);
+8. spawns two ranks on the one card (gloo on CUDA tensors: NCCL refuses
+   two ranks on one device) and holds a data-parallel fine-tune step
+   (4 + 4), a view-sharded one (3 + 3 sources) and the view-sharded engine
+   on a DTU request against this process's single-process results
+   (``parallel/equivalence.py``, the JAX gate's bounds); NCCL across
+   cards is not exercised;
+9. prints each phase's seconds, a ``{"kernels": [...]}`` line (K2 and K4
+   entries name the CUDA route of each layer in ``cuda_route``: ``mma``
+   on the tensor cores, ``fma`` on the CUDA cores), the card's name and
+   power limit, then the device line last.
 
 Any failure raises and the exit code is nonzero.  Without a GPU it exits
 1 and prints no result.
@@ -103,6 +121,15 @@ CONFIGS = {
 TRAIN = dict(B=4, V=5, H=512, W=640, ndepths=(48, 8, 8), f=361.54,
              dmin=425.0, dint=2.5 * 0.53, step=(15.0, 4.0, 2.0), ang=0.02)
 TRAIN_STEPS = (2, 5)          # warm-up and timed training steps
+# the BlendedMVS fine-tuning config (cli/train.py --mode finetune, the
+# blend_finetune profile: 768x576, 7 views, 96/8/8, B=8, fp32) for K1-K3's
+# phases; the seeded rig of the rendered tree below (quarter-res focal)
+BLEND = dict(B=8, V=7, H=576, W=768, ndepths=(96, 8, 8), f=1.16 * 768 / 4,
+             dmin=0.4, dint=3.1 / 384, step=(0.04, 0.01, 0.0), ang=0.02)
+# the rendered BlendedMVS tree: a textured plane seen by 17 cameras on a
+# line (every ref keeps 16 >= 7 sources), 3 fine-tune epochs of 2 steps
+BLEND_TREE = dict(views=17, plane_z=1.6, band=(0.4, 3.5), focal_mult=1.16,
+                  baseline=0.04, epochs=3, scan="synthetic_plane")
 ND = 384                      # inverse-depth samples per batch item
 HDIM = (48, 32, 16)
 CDIM = (32, 16, 8)            # feature channels per stage
@@ -354,6 +381,13 @@ def run(torch, card):
     from effi_mvs_plus_tpu_torch.ops import _kernels
 
     root = os.path.dirname(os.path.abspath(__file__))
+    t_run = t_lap = time.perf_counter()
+    seconds = {}
+
+    def lap():
+        nonlocal t_lap
+        t, t_lap = t_lap, time.perf_counter()
+        return t_lap - t
     resolve_device("cuda")          # true fp32: TF32 off for cuDNN, matmul
     log({"phase": "device", "nvidia_smi": card,
          "name": torch.cuda.get_device_name(0),
@@ -365,6 +399,7 @@ def run(torch, card):
     _kernels.library()
     log({"phase": "build", "nvcc_seconds": round(build_s, 2),
          "total_seconds": round(time.perf_counter() - t0, 2)})
+    seconds["build"] = lap()
 
     sd = load_npz_checkpoint(os.path.join(root, "checkpoints",
                                           "model_dtu.npz"))
@@ -374,35 +409,60 @@ def run(torch, card):
     # ---- 2. kernel phases ----
     with torch.inference_mode():
         entries = forward_kernel_phases(torch, sd, gen)
+    seconds["k1_k2_phases"] = lap()
     entries += bwd_kernel_phases(torch, gen)
+    seconds["k3_phases"] = lap()
     with torch.inference_mode():
         chain_entries = conv_chain_phases(torch, root, gen)
     torch.cuda.empty_cache()
+    seconds["k4_phases"] = lap()
 
     # ---- 3. serving path, and the DTU forward with and without K4 ----
     with torch.inference_mode():
         k1_main, k2_main, k4_main = serving_path(torch, sd)
+    seconds["serving_path"] = lap()
     stem_ab(torch, sd)
     torch.cuda.empty_cache()
+    seconds["dtu_fused_stem"] = lap()
 
     # ---- 4. training path ----
     train = training_path(torch, sd)
     torch.cuda.empty_cache()
+    seconds["training_path"] = lap()
 
     # ---- 5. T&T reconstruction path ----
     tank = tank_path(torch, root)
+    seconds["tank_path"] = lap()
+
+    # ---- 6. BlendedMVS fine-tuning, then two ranks on the card ----
+    from effi_mvs_plus_tpu_torch.data import cams as camio
+    with tempfile.TemporaryDirectory() as tree:
+        listfile = render_blend_tree(torch, tree, camio)
+        seconds["blend_render"] = lap()
+        finetune, test = finetune_path(torch, root, tree, listfile)
+        seconds["finetune_path"] = lap()
+        distributed_phase(torch, tree, listfile, sd)
+        seconds["distributed"] = lap()
 
     for e in entries:
-        if e["name"] == "warp_correlate_bwd":
+        name = {"warp_correlate": "k1_launches", "conv_gru": "k2_launches",
+                "warp_correlate_bwd": "k3_launches"}[e["name"]]
+        e["launches_finetune"] = finetune[name]
+        if e["config"] == "blend":
+            e["launches"] = finetune[name]
+        elif e["name"] == "warp_correlate_bwd":
             e["launches"] = train["k3_launches"]
-            continue
-        k1 = e["name"] == "warp_correlate"
-        e["launches"] = k1_main if k1 else k2_main
-        e["launches_train"] = train["k1_launches" if k1 else "k2_launches"]
-        e["launches_tnt"] = tank["k1_launches" if k1 else "k2_launches"]
+        else:
+            e["launches"] = k1_main if name == "k1_launches" else k2_main
+        if e["name"] != "warp_correlate_bwd":
+            e["launches_train"] = train[name]
+            e["launches_tnt"] = tank[name]
     for e in chain_entries:
         e["launches"] = k4_main
         e["launches_tnt"] = tank["k4_launches"]
+        e["launches_finetune_test"] = test["k4_launches"]
+    log({"phase": "seconds", **seconds,
+         "total": time.perf_counter() - t_run})
     print(json.dumps({"kernels": entries + chain_entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -420,7 +480,7 @@ def forward_kernel_phases(torch, sd, gen):
     from effi_mvs_plus_tpu_torch.ops import cuda_warp
 
     entries = []
-    for cname, cfg in (*CONFIGS.items(), ("train", TRAIN)):
+    for cname, cfg in (*CONFIGS.items(), ("train", TRAIN), ("blend", BLEND)):
         proj_ms, dv = rig(cfg, camio)
         for s in range(3):
             for dname, dtype in (("float32", torch.float32),
@@ -750,7 +810,8 @@ def bwd_kernel_phases(torch, gen):
         return got, err, scale, rerun
 
     entries = []
-    for cname, cfg in (("train", TRAIN), ("dtu", CONFIGS["dtu"])):
+    for cname, cfg in (("train", TRAIN), ("dtu", CONFIGS["dtu"]),
+                       ("blend", BLEND)):
         proj_ms, dv = rig(cfg, camio)
         for s in range(3):
             for dname, dtype in (("float32", torch.float32),
@@ -885,13 +946,11 @@ def training_path(torch, sd):
     one step's loss and gradients with the kernels against the plain
     versions, then warm-up and timed steps of ``make_train_step`` fed by
     the port's Loader.  Returns the launch counts of the timed run."""
-    from effi_mvs_plus_tpu_torch import nn
     from effi_mvs_plus_tpu_torch.data import cams as camio
     from effi_mvs_plus_tpu_torch.data.loader import Loader
     from effi_mvs_plus_tpu_torch.models import EffiMVS, EffiMVSConfig
-    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
+    from effi_mvs_plus_tpu_torch.ops import cuda_gru, cuda_warp
     from effi_mvs_plus_tpu_torch.train import trainer as T
-    from effi_mvs_plus_tpu_torch.train.loss import mvs_loss
     from effi_mvs_plus_tpu_torch.train.optim import make_optimizer
 
     B = TRAIN["B"]
@@ -912,39 +971,10 @@ def training_path(torch, sd):
     # the same weights, batch and dropout seed
     first = T.batch_to_device(next(batches), dev)
     saved = {k: v.clone() for k, v in model.state_dict().items()}
-
-    def loss_and_grads():
-        model.load_state_dict(saved)      # a train forward moves BN stats
-        model.zero_grad(set_to_none=True)
-        model.train()
-        gen = torch.Generator(device="cuda")
-        gen.manual_seed(SEED)
-        nn.use_generator(model, gen)
-        out = model(first["imgs"], first["proj_matrices"],
-                    first["depth_values"])
-        loss, _ = mvs_loss(out["depth"], first["depth"], first["mask"])
-        loss.backward()
-        return loss.item(), {n: p.grad.detach().clone()
-                             for n, p in model.named_parameters()}
-
-    cuda_warp.launches = cuda_warp.bwd_launches = cuda_gru.launches = 0
-    loss_k, grads_k = loss_and_grads()
-    if counts() != (3, 3, 9):
-        raise AssertionError(f"one step launched K1, K3, K2 {counts()} "
-                             f"times, not 3, 3, 9")
-    with plain_kernels(cuda_warp, cuda_gru, cuda_conv):
-        loss_p, grads_p = loss_and_grads()
-    if counts() != (3, 3, 9):
-        raise AssertionError("the plain step launched a kernel")
-    worst, worst_leaf, p90 = compare_grads(loss_k, grads_k, loss_p, grads_p)
-    # the same step with the kernels again: K3's and the convolutions'
-    # backward add in no fixed order, so this is the run-to-run spread
-    loss_k2, grads_k2 = loss_and_grads()
-    rerun, rerun_leaf, rerun_p90 = compare_grads(loss_k2, grads_k2, loss_k,
-                                                 grads_k)
-    del grads_k, grads_p, grads_k2, first
-    model.load_state_dict(saved)
-    model.zero_grad(set_to_none=True)
+    (loss_k, loss_p, worst, worst_leaf, p90, loss_k2, rerun, rerun_leaf,
+     rerun_p90) = kernels_against_plain(torch, model, first, saved,
+                                        rerun=True)
+    del first
 
     # the timed run: launch counts reset just before, read just after
     opt, scheduler, _ = make_optimizer(model, 1e-3, 1000)
@@ -995,6 +1025,59 @@ def training_path(torch, sd):
          "k2_launches": k2,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
     return {"k1_launches": k1, "k2_launches": k2, "k3_launches": k3}
+
+
+def kernels_against_plain(torch, model, batch, saved, rerun=False):
+    """One train step's loss and gradients (forward + ``mvs_loss`` +
+    backward, from the weights ``saved``, dropout drawn from SEED) with
+    the kernels against the same step with the plain versions
+    (``compare_grads``); with ``rerun``, the kernel step again against the
+    first (K3's and the convolutions' backward add in no fixed order, so
+    that is the run-to-run spread).  Leaves the model at ``saved``.
+    Returns (loss with the kernels, plain loss, worst rel-l2, its leaf,
+    p90[, rerun loss, rerun worst rel-l2, its leaf, rerun p90])."""
+    from effi_mvs_plus_tpu_torch import nn
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
+    from effi_mvs_plus_tpu_torch.train.loss import mvs_loss
+
+    def counts():
+        return (cuda_warp.launches, cuda_warp.bwd_launches,
+                cuda_gru.launches)
+
+    def loss_and_grads():
+        model.load_state_dict(saved)      # a train forward moves BN stats
+        model.zero_grad(set_to_none=True)
+        model.train()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        nn.use_generator(model, gen)
+        out = model(batch["imgs"], batch["proj_matrices"],
+                    batch["depth_values"])
+        loss, _ = mvs_loss(out["depth"], batch["depth"], batch["mask"])
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}
+
+    cuda_warp.launches = cuda_warp.bwd_launches = cuda_gru.launches = 0
+    loss_k, grads_k = loss_and_grads()
+    if counts() != (3, 3, 9):
+        raise AssertionError(f"one step launched K1, K3, K2 {counts()} "
+                             f"times, not 3, 3, 9")
+    with plain_kernels(cuda_warp, cuda_gru, cuda_conv):
+        loss_p, grads_p = loss_and_grads()
+    if counts() != (3, 3, 9):
+        raise AssertionError("the plain step launched a kernel")
+    out = (loss_k, loss_p,
+           *compare_grads(loss_k, grads_k, loss_p, grads_p))
+    del grads_p
+    if rerun:
+        loss_k2, grads_k2 = loss_and_grads()
+        out += (loss_k2, *compare_grads(loss_k2, grads_k2, loss_k, grads_k))
+        del grads_k2
+    del grads_k
+    model.load_state_dict(saved)
+    model.zero_grad(set_to_none=True)
+    return out
 
 
 def check_chain(what, got, want, dtype, x, specs):
@@ -1408,6 +1491,265 @@ def tank_inplace(torch, root, data):
                                       - out_p["depth"][-1]).abs().median()),
          "conf_max_abs": float(conf_diff.max()),
          "conf_share_over_5e-3": float((conf_diff >= 5e-3).float().mean())})
+
+
+def plane_depth(torch, K, E, H, W, z):
+    """The camera-space depth of the world plane Z = z through camera
+    (K, E) at every pixel, float64 on the card; float32 (H, W)."""
+    f64 = torch.float64
+    ys, xs = torch.meshgrid(torch.arange(H, dtype=f64, device="cuda"),
+                            torch.arange(W, dtype=f64, device="cuda"),
+                            indexing="ij")
+    pix = torch.stack([xs, ys, torch.ones_like(xs)]).reshape(3, -1)
+    Kt = torch.as_tensor(K, dtype=f64, device="cuda")
+    R = torch.as_tensor(E[:3, :3], dtype=f64, device="cuda")
+    t = torch.as_tensor(E[:3, 3], dtype=f64, device="cuda")
+    dirs = R.T @ (torch.linalg.inv(Kt) @ pix)
+    origin = -R.T @ t
+    pts = origin[:, None] + dirs * ((z - origin[2]) / dirs[2])
+    return (R @ pts + t[:, None])[2].reshape(H, W).float().cpu().numpy()
+
+
+def render_blend_tree(torch, root, camio):
+    """A BlendedMVS tree at the blend_finetune size (768x576) in
+    <root>/<scan>/{blended_images,cams,rendered_depth_maps}: the textured
+    plane of the T&T rig seen by BLEND_TREE's cameras on a line, each aimed
+    at the plane point in front of the middle one, with the plane's depth
+    as ground truth and a 4-field cam line 11.  Returns the list file."""
+    from PIL import Image
+    from effi_mvs_plus_tpu_torch.data.pfm import save_pfm
+    H, W, n = BLEND["H"], BLEND["W"], BLEND_TREE["views"]
+    z, (dmin, dmax) = BLEND_TREE["plane_z"], BLEND_TREE["band"]
+    base = os.path.join(root, BLEND_TREE["scan"])
+    for d in ("blended_images", "cams", "rendered_depth_maps"):
+        os.makedirs(os.path.join(base, d))
+    f = BLEND_TREE["focal_mult"] * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    tex = torch.as_tensor(make_texture(np.random.default_rng(SEED + 2)),
+                          device="cuda")
+    b = BLEND_TREE["baseline"]
+    for v in range(n):
+        E = look_at_extrinsic([b * (v - n // 2), b / 4.0 * v, 0.0],
+                              [0.0, 0.0, z])
+        Image.fromarray(render_plane(torch, K, E, H, W, z, tex,
+                                     2.0 * z / f)).save(
+            os.path.join(base, "blended_images", f"{v:08d}.jpg"), quality=95)
+        save_pfm(os.path.join(base, "rendered_depth_maps", f"{v:08d}.pfm"),
+                 plane_depth(torch, K, E, H, W, z))
+        camio.write_cam_file(os.path.join(base, "cams", f"{v:08d}_cam.txt"),
+                             E, K, [dmin, (dmax - dmin) / 192.0, 192.0, dmax])
+    with open(os.path.join(base, "cams", "pair.txt"), "w") as fh:
+        fh.write(f"{n}\n")
+        for v in range(n):
+            srcs = sorted((s for s in range(n) if s != v),
+                          key=lambda s: abs(s - v))
+            fh.write(f"{v}\n{len(srcs)} "
+                     + " ".join(f"{s} 10.0" for s in srcs) + "\n")
+    listfile = os.path.join(root, "list.txt")
+    with open(listfile, "w") as fh:
+        fh.write(BLEND_TREE["scan"] + "\n")
+    return listfile
+
+
+def blend_batch(tree, listfile):
+    """The first B=8 samples of the tree's training split (the reader's
+    ``train`` mode: each ref's first 6 sources), collated by the Loader."""
+    from effi_mvs_plus_tpu_torch.data.datasets import BlendedMVSDataset
+    from effi_mvs_plus_tpu_torch.data.loader import Loader
+    ds = BlendedMVSDataset(tree, listfile, "train", BLEND["V"], ND)
+    batch = next(iter(Loader(ds, BLEND["B"], num_workers=8)))
+    batch.pop("filename")
+    return batch
+
+
+def finetune_path(torch, root, tree, listfile):
+    """BlendedMVS fine-tuning through ``cli/train.py``'s own ``main``:
+    ``--mode finetune`` (the blend_finetune profile at full width: 768x576,
+    7 views, 96/8/8, B=8, fp32) from model_dtu.npz on the rendered tree,
+    BLEND_TREE's epochs of 2 steps and an eval batch each, with the launch
+    counts reset just before and read just after and each step timed by
+    CUDA events; then one step with the kernels against one with the plain
+    versions, ``--mode test`` (K4 in its eval forwards) and ``--mode
+    profile``.  Returns the launch counts of the fine-tune run and of the
+    test run."""
+    from effi_mvs_plus_tpu_torch.cli import train as cli
+    from effi_mvs_plus_tpu_torch.io import load_npz_checkpoint
+    from effi_mvs_plus_tpu_torch.models import EffiMVS, EffiMVSConfig
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
+    from effi_mvs_plus_tpu_torch.train import trainer as T
+
+    def counts():
+        return {"k1_launches": cuda_warp.launches,
+                "k2_launches": cuda_gru.launches,
+                "k3_launches": cuda_warp.bwd_launches,
+                "k4_launches": cuda_conv.launches}
+
+    def reset():
+        cuda_warp.launches = cuda_gru.launches = 0
+        cuda_warp.bwd_launches = cuda_conv.launches = 0
+
+    npz = os.path.join(root, "checkpoints", "model_dtu.npz")
+    logdir = os.path.join(tree, "run")
+    common = ["--device", "cuda", "--testpath", tree, "--testlist",
+              listfile, "--loadckpt", npz, "--num_workers", "8"]
+    real = T.make_train_step
+    step_ms = []
+    step_done = []                 # host clock when each step had finished
+
+    def timed_step(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def run_step(batch):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            metrics = step(batch)
+            end.record()
+            end.synchronize()
+            step_done.append(time.perf_counter())
+            step_ms.append(start.elapsed_time(end))
+            return metrics
+        return run_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    T.make_train_step = timed_step
+    reset()
+    try:
+        cli.main(["--mode", "finetune", "--trainpath", tree, "--trainlist",
+                  listfile, "--logdir", logdir, "--epochs",
+                  str(BLEND_TREE["epochs"]), "--summary_freq", "1"] + common)
+    finally:
+        T.make_train_step = real
+    ft = counts()
+    ft_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    steps = len(step_ms)
+    evals = BLEND_TREE["epochs"] * (BLEND_TREE["views"] // BLEND["B"])
+    want = {"k1_launches": 3 * (steps + evals),
+            "k2_launches": 9 * (steps + evals), "k3_launches": 3 * steps,
+            "k4_launches": 8 * evals}
+    if steps != BLEND_TREE["epochs"] * (BLEND_TREE["views"] // BLEND["B"]) \
+            or ft != want:
+        raise AssertionError(f"fine-tune: {steps} steps, launches {ft} "
+                             f"(want {want})")
+    rows = [json.loads(ln) for ln in open(os.path.join(logdir,
+                                                       "metrics.jsonl"))]
+    losses = [r["train/loss"] for r in rows if "train/loss" in r]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"fine-tune losses {losses}")
+    if not os.path.exists(os.path.join(
+            logdir, f"model_{BLEND_TREE['epochs'] - 1:06d}.ckpt")):
+        raise AssertionError("fine-tune: no checkpoint of the last epoch")
+    timed = step_ms[1:]            # the first step warms up
+    ms = statistics.median(timed)
+    # the wall time from one step's end to the next's within an epoch:
+    # the CLI's loop (the metrics row, the Loader's wait for the batch),
+    # then the step
+    per_epoch = steps // BLEND_TREE["epochs"]
+    wall_ms = [(step_done[i] - step_done[i - 1]) * 1e3
+               for i in range(1, steps) if i % per_epoch]
+    log({"phase": "finetune_path",
+         "config": "blend_finetune B8 V7 768x576 96/8/8 fp32",
+         "weights": "checkpoints/model_dtu.npz",
+         "route": "cli/train.py main --mode finetune: BlendedMVSDataset "
+                  "decodes the rendered JPEGs with PIL",
+         "steps": steps, "eval_batches": evals, "step_ms": step_ms,
+         "timed_step_ms": timed, "samples_per_s": BLEND["B"] / (ms / 1e3),
+         "samples_per_s_min": BLEND["B"] / (max(timed) / 1e3),
+         "samples_per_s_max": BLEND["B"] / (min(timed) / 1e3),
+         "wall_step_ms": wall_ms,
+         "wall_samples_per_s": BLEND["B"] / (statistics.median(wall_ms)
+                                             / 1e3),
+         "losses": losses, **ft, "peak_mem_gb": peak_gb,
+         "cli_seconds": ft_s})
+
+    # one step at this config: kernels against plain versions
+    sd = load_npz_checkpoint(npz)
+    model = EffiMVS(EffiMVSConfig(ndepths=BLEND["ndepths"]))
+    model.load_state_dict(sd, strict=True)
+    model.to("cuda")
+    batch = T.batch_to_device(blend_batch(tree, listfile), "cuda")
+    loss_k, loss_p, worst, worst_leaf, p90 = kernels_against_plain(
+        torch, model, batch, sd)
+    del model, batch
+    torch.cuda.empty_cache()
+    log({"phase": "finetune_vs_plain", "loss_kernels": loss_k,
+         "loss_plain": loss_p, "grad_worst_rel_l2": worst,
+         "grad_worst_leaf": worst_leaf, "grad_p90_rel_l2": p90})
+
+    # --mode test: the eval suite over the tree, K4 in each eval forward
+    reset()
+    t0 = time.perf_counter()
+    means = cli.main(["--mode", "test", "--dataset", "blend", "--ndepths",
+                      "96,8,8", "--testviews", str(BLEND["V"]),
+                      "--batch_size", str(BLEND["B"])] + common)
+    test = counts()
+    n_batches = -(-BLEND_TREE["views"] // BLEND["B"])
+    if not (all(np.isfinite(v) for v in means.values())
+            and test["k4_launches"] == 8 * n_batches
+            and test["k1_launches"] == 3 * n_batches):
+        raise AssertionError(f"--mode test: {means}, launches {test}")
+    log({"phase": "finetune_test_mode", "metrics": means, **test,
+         "seconds": time.perf_counter() - t0})
+
+    # --mode profile: timed steps, then a torch.profiler trace
+    t0 = time.perf_counter()
+    prof_dir = os.path.join(tree, "prof")
+    dt = cli.main(["--mode", "profile", "--dataset", "blend", "--ndepths",
+                   "96,8,8", "--testviews", str(BLEND["V"]), "--batch_size",
+                   "4", "--logdir", prof_dir] + common)
+    trace = os.path.join(prof_dir, "trace", "trace.json")
+    if not (dt > 0 and os.path.isfile(trace)):
+        raise AssertionError(f"--mode profile: {dt} s/step, {trace}")
+    log({"phase": "finetune_profile_mode", "batch": 4, "ms_per_step": dt * 1e3,
+         "trace_bytes": os.path.getsize(trace),
+         "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    return ft, test
+
+
+def distributed_phase(torch, tree, listfile, sd):
+    """Two ranks spawned on the one card (gloo on CUDA tensors: NCCL
+    refuses two ranks on one device) run the equivalence gate of
+    ``parallel/equivalence.py`` with the kernels: a data-parallel
+    fine-tune step (4 + 4 of the B=8 batch), a view-sharded one (3 + 3
+    sources) and the view-sharded engine on one DTU request (2 + 2
+    sources, fp32), each against this process's single-process result."""
+    from effi_mvs_plus_tpu_torch.data import cams as camio
+    from effi_mvs_plus_tpu_torch.models import EffiMVSConfig
+    from effi_mvs_plus_tpu_torch.parallel import equivalence as E
+    t0 = time.perf_counter()
+    request = dtu_batch(camio)
+    request.pop("filename")
+    ref = E.references(sd, EffiMVSConfig(ndepths=BLEND["ndepths"]),
+                       blend_batch(tree, listfile), "cuda", request,
+                       EffiMVSConfig())
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as work:
+        report = E.spawn(2, ["data", "views", "engine"], ref, work,
+                         backend="gloo", device="cuda", timeout=600,
+                         threads=4)
+    for name in ("data", "views"):
+        n = report[name]["launches"]
+        if not (n["k1"] == 3 and n["k2"] == 9 and n["k3"] == 3):
+            raise AssertionError(f"distributed {name}: launches {n}")
+    if report["engine"]["launches"]["k4"] != 8:
+        raise AssertionError(f"distributed engine: {report['engine']}")
+    for name in ("data", "views"):
+        report[name].pop("grad_rel_l2")
+    log({"phase": "distributed", "ranks": 2,
+         "route": "gloo on CUDA tensors, both ranks on cuda:0",
+         "step_config": "blend_finetune B8 V7 768x576 96/8/8 fp32",
+         "engine_config": "dtu B6 V5 1152x864 48/8/8 fp32",
+         "single_process_loss": ref["step"][0], **report,
+         "bounds": {"dloss": f"{E.LOSS_RTOL} (1 + |loss|)",
+                    "max_dparam": E.PARAM_ATOL,
+                    "grad_rel_l2": E.GRAD_REL},
+         "reference_seconds": ref_s,
+         "seconds": time.perf_counter() - t0})
 
 
 def gru_module(sd, stage, hd):

@@ -7,8 +7,8 @@ batches reference views on ``--device`` (``cuda`` unless told otherwise;
 with no GPU the default raises); fusion runs there too, one scan after
 another.  ``--loadckpt`` takes a shipped ``.npz`` or a port checkpoint.
 
-Not ported yet, and refused with an error: multi-process scan
-partitioning.
+Multi-process (``torchrun``, one process per GPU): each rank infers and
+fuses its round-robin share of the scans.
 
 Usage:
   python -m effi_mvs_plus_tpu_torch.cli.test_dtu --testpath <dtu_testing> \\
@@ -142,15 +142,21 @@ def main(argv=None):
     pre.add_argument("--profile", default="dtu_eval")
     ns, _ = pre.parse_known_args(argv)
     args = build_parser(ns.profile).parse_args(argv)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("multi-process scan partitioning is not ported yet")
     with open(args.testlist) as f:
         scans = [ln.strip() for ln in f if ln.strip()]
+    # each process owns a round-robin share of the scans (inference and
+    # fusion are independent per scan)
+    from effi_mvs_plus_tpu_torch import parallel
+    if parallel.initialize(device=args.device):
+        args.device = str(parallel.rank_device(args.device))
+        scans = parallel.partition(scans)
+        print(f"process {parallel.rank()}: {len(scans)} scans", flush=True)
     if not args.skip_depth:
         save_depths(args, scans)
     if not args.skip_fusion:
         for scan in scans:
             fuse_scan(args, scan)
+    parallel.barrier()
 
 
 if __name__ == "__main__":

@@ -7,8 +7,11 @@ dynamic visibility fusion with the per-scene filter configs, writing
 no GPU the default raises).  ``--loadckpt`` takes a shipped ``.npz`` or a
 port checkpoint.
 
-Not ported yet, and refused with an error: ``--shard_views`` and
-multi-process scene partitioning.
+Multi-process (``torchrun``, one process per GPU): each rank infers and
+fuses its round-robin share of ``--scenes``; with ``--shard_views`` the
+ranks instead split the source views of every request
+(``InferenceEngine(shard_views=True)``) and rank 0 writes the maps and
+fuses.
 
 Usage:
   python -m effi_mvs_plus_tpu_torch.cli.test_tank --testpath <tt_root> \\
@@ -51,7 +54,8 @@ def build_parser(profile_name="tank_eval"):
     p.add_argument("--max_w", type=int, default=1920)
     p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--shard_views", action="store_true",
-                   help="not ported yet: refused")
+                   help="multi-process: every rank works on each request, "
+                        "on its block of the source views")
     p.add_argument("--skip_depth", action="store_true")
     p.add_argument("--skip_fusion", action="store_true")
     # overrides of the per-scene filter config (TANK_FILTER_CONFIGS stays
@@ -79,7 +83,8 @@ def save_depths(args):
         gru_iters=tuple(int(x) for x in args.GRUiters.split(",")),
         CostNum=args.CostNum, compute_dtype=torch.bfloat16)
     engine = InferenceEngine(load_state_dict(args.loadckpt), cfg,
-                             device=args.device)
+                             device=args.device,
+                             shard_views=args.shard_views)
     out = {}
     for scene in args.scenes:
         ds = TanksDataset(args.testpath, [scene], args.num_view,
@@ -178,16 +183,19 @@ def main(argv=None):
     pre.add_argument("--profile", default="tank_eval")
     ns, _ = pre.parse_known_args(argv)
     args = build_parser(ns.profile).parse_args(argv)
-    if args.shard_views:
-        raise SystemExit("--shard_views is not ported yet")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("multi-process scene partitioning is not ported "
-                         "yet")
+    from effi_mvs_plus_tpu_torch import parallel
+    if parallel.initialize(device=args.device):
+        args.device = str(parallel.rank_device(args.device))
+        if not args.shard_views:
+            args.scenes = parallel.partition(args.scenes)
+        print(f"process {parallel.rank()}: scenes {args.scenes}",
+              flush=True)
     if not args.skip_depth:
         save_depths(args)
-    if not args.skip_fusion:
+    if not args.skip_fusion and (not args.shard_views or parallel.is_main()):
         for scene in args.scenes:
             fuse_scene_tank(args, scene)
+    parallel.barrier()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,4 @@
-"""Training CLI, ``--mode train`` on one device.
+"""Training CLI: ``--mode train|finetune|test|profile``.
 
 The port of ``effi_mvs_plus_tpu/cli/train.py``: the same argument surface
 and profiles, the train and eval epochs, per-epoch checkpoints
@@ -6,15 +6,39 @@ and profiles, the train and eval epochs, per-epoch checkpoints
 ``--resume``.  ``--loadckpt`` takes a shipped ``.npz`` or a port
 checkpoint.  Runs on ``--device`` (``cuda`` unless told otherwise).
 
-Not ported yet, and refused with an error: ``--mode finetune``, ``test``
-and ``profile``, ``--device_cache``, ``--data_parallel`` /
-``--model_parallel`` / ``--shard_policy`` and multi-process runs.
+* ``--mode finetune`` selects the ``blend_finetune`` profile (BlendedMVS,
+  96/8/8, 7 views, B=8, lr 4e-4) and needs ``--loadckpt``.
+* ``--trainlist`` / ``--testlist`` default to the profile's scan lists
+  under ``lists/`` (``lists/dtu``, ``lists/bld``).
+* ``--mode test`` evaluates the weights on the eval split (``run_test``);
+  ``--mode profile`` times training steps on one eval batch and writes a
+  ``torch.profiler`` trace under ``<logdir>/trace`` (``run_profile``).
+* Multi-process: one process per GPU, launched by ``torchrun`` (or any
+  launcher that sets ``RANK``/``WORLD_SIZE``/``MASTER_ADDR``/
+  ``MASTER_PORT``).  The processes form a (data, model) grid
+  (``--data_parallel`` x ``--model_parallel``, ``parallel/mesh.py``):
+  ``--batch_size`` is the global batch, each data rank reads its own
+  shard of the samples and takes ``batch_size / data`` of them a step,
+  and with ``--model_parallel > 1`` the model ranks split the source
+  views (``--shard_policy views``).  Checkpoints and the metrics JSONL
+  are written by rank 0.
+
+Refused with an error: ``--device_cache`` (``data/device_cache.py`` of the
+JAX package hid a slow host link of the machine it was written for; a
+GPU host has no such link), ``--shard_policy depth`` (ROADMAP A11b) and
+``--shard_policy spatial`` (measured 8x worse; ROADMAP A11).
 
 Usage:
   python -m effi_mvs_plus_tpu_torch.cli.train --mode train \
       --trainpath DTU_TRAIN_ROOT --trainlist lists/dtu/train.txt \
       --testlist lists/dtu/test.txt --logdir ckpts --epochs 16 \
       --batch_size 4 --lr 1e-3
+  torchrun --nproc_per_node 4 -m effi_mvs_plus_tpu_torch.cli.train \
+      --mode finetune --trainpath BLENDEDMVS_ROOT \
+      --trainlist lists/bld/training_list.txt \
+      --testlist lists/bld/validation_list.txt \
+      --loadckpt checkpoints/model_dtu.npz --data_parallel 2 \
+      --model_parallel 2
 """
 
 from __future__ import annotations
@@ -26,8 +50,11 @@ import time
 
 import torch
 
-NOT_PORTED = ("device_cache", "data_parallel", "model_parallel",
-              "shard_policy")
+# the device cache of the JAX package, and why the port has none
+NO_DEVICE_CACHE = ("--device_cache is not ported: the JAX package's "
+                   "data/device_cache.py hid a slow host-to-device link of "
+                   "the machine it was written for; a GPU host has no such "
+                   "link, so the Loader feeds the card directly")
 
 
 def build_parser(profile_name="dtu_train"):
@@ -71,24 +98,71 @@ def build_parser(profile_name="dtu_train"):
                    help="DTU crop size 'W,H' (default 640,512); smaller "
                         "values centre-crop the images and shift the "
                         "principal point to match")
-    # accepted for the JAX CLI's sake, refused until ported
-    p.add_argument("--device_cache", action="store_true")
-    p.add_argument("--data_parallel", type=int, default=None)
-    p.add_argument("--model_parallel", type=int, default=None)
-    p.add_argument("--shard_policy", default=None)
-    apply_profile_defaults(p, get_profile(profile_name))
+    p.add_argument("--device_cache", action="store_true",
+                   help="refused: the Loader feeds the card directly")
+    p.add_argument("--data_parallel", type=int, default=None,
+                   help="ranks on the data axis (default: all of them over "
+                        "--model_parallel)")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="ranks on the model axis, which split the source "
+                        "views")
+    p.add_argument("--shard_policy", default="views",
+                   help="model-axis layout: views (FPN, per-view warps and "
+                        "PixelwiseNet sharded, the view sums all-reduced); "
+                        "depth and spatial are refused")
+    profile = get_profile(profile_name)
+    apply_profile_defaults(p, profile)
+    if len(profile.lists) == 2:   # the repo's scan lists: train, then eval
+        repo = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        p.set_defaults(trainlist=os.path.join(repo, profile.lists[0]),
+                       testlist=os.path.join(repo, profile.lists[1]))
     return p
 
 
 def _refuse_unported(args):
-    if args.mode != "train":
-        raise SystemExit(f"--mode {args.mode} is not ported yet; the port "
-                         f"trains (--mode train)")
-    for flag in NOT_PORTED:
-        if getattr(args, flag) not in (None, False):
-            raise SystemExit(f"--{flag} is not ported yet")
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise SystemExit("multi-process training is not ported yet")
+    """Refuse what stays unported, with the reason, before any work."""
+    from effi_mvs_plus_tpu_torch.parallel import layout_kinds
+    if args.device_cache:
+        raise SystemExit(NO_DEVICE_CACHE)
+    try:
+        layout_kinds(args.shard_policy)
+    except ValueError as e:
+        raise SystemExit(f"--shard_policy {args.shard_policy}: {e}")
+
+
+def make_policy(args):
+    """The (data, model) grid over the processes and its policy; None for
+    a single process."""
+    from effi_mvs_plus_tpu_torch import parallel
+    world = parallel.world_size()
+    mp = args.model_parallel
+    dp = args.data_parallel or max(world // mp, 1)
+    if dp * mp != world:
+        raise SystemExit(f"--data_parallel {dp} x --model_parallel {mp} "
+                         f"needs {dp * mp} processes; {world} are running")
+    if world == 1:
+        return None
+    return parallel.ShardingPolicy(parallel.global_mesh(model=mp))
+
+
+def shard_indices(n, policy):
+    """This data rank's samples: the round-robin partition of the first
+    ``n - n % data`` samples, so every rank runs as many batches (a step's
+    collectives pair up across ranks)."""
+    from effi_mvs_plus_tpu_torch import parallel
+    if policy is None or policy.mesh.data == 1:
+        return None
+    d = policy.mesh.data
+    return parallel.partition(range(n - n % d), d, policy.mesh.data_rank)
+
+
+def global_mean(meter):
+    """The mean of a DictMeter's metrics over every batch of every rank."""
+    from effi_mvs_plus_tpu_torch import parallel
+    tot = parallel.mean_metrics({**meter.sums, "_count": meter.count})
+    n = max(tot.pop("_count"), 1e-12)
+    return {k: v / n for k, v in tot.items()}
 
 
 def make_config(args):
@@ -114,24 +188,34 @@ def initial_state(args):
 
 
 def main(argv=None):
-    # two-phase parse: --profile picks the preset the remaining defaults
-    # come from; explicit flags still win
+    # two-phase parse: --profile (or --mode finetune) picks the preset the
+    # remaining defaults come from; explicit flags still win
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--profile", default=None)
+    pre.add_argument("--mode", default="train")
     ns, _ = pre.parse_known_args(argv)
-    args = build_parser(ns.profile or "dtu_train").parse_args(argv)
+    profile = ns.profile or ("blend_finetune" if ns.mode == "finetune"
+                             else "dtu_train")
+    args = build_parser(profile).parse_args(argv)
     _refuse_unported(args)
+    if args.mode == "finetune" and not args.loadckpt:
+        raise SystemExit("--mode finetune requires --loadckpt")
 
+    from effi_mvs_plus_tpu_torch import parallel
     from effi_mvs_plus_tpu_torch.data import find_dataset
     from effi_mvs_plus_tpu_torch.data.loader import Loader
     from effi_mvs_plus_tpu_torch.device import resolve_device
-    from effi_mvs_plus_tpu_torch.models import EffiMVS
     from effi_mvs_plus_tpu_torch.train import trainer as T
     from effi_mvs_plus_tpu_torch.train.optim import make_optimizer
     from effi_mvs_plus_tpu_torch.utils.logging import MetricsWriter
 
-    dev = resolve_device(args.device)
+    if parallel.initialize(device=args.device):
+        print(f"process {parallel.rank()}/{parallel.world_size()} up",
+              flush=True)
+    dev = resolve_device(parallel.rank_device(args.device))
     cfg = make_config(args)
+    policy = (make_policy(args) if args.mode in ("train", "finetune")
+              else None)
 
     ds_cls = find_dataset(args.dataset)
     if args.crop_wh:
@@ -139,26 +223,37 @@ def main(argv=None):
         ds_cls = functools.partial(ds_cls, crop_wh=wh)
     test_ds = ds_cls(args.testpath or args.trainpath, args.testlist, "test",
                      args.testviews, args.numdepth)
+
+    if args.mode == "test":
+        return run_test(args, cfg, test_ds, dev)
+    if args.mode == "profile":
+        return run_profile(args, cfg, test_ds, dev)
+
+    data = 1 if policy is None else policy.mesh.data
+    if args.batch_size % data:
+        raise SystemExit(f"--batch_size {args.batch_size} does not split "
+                         f"over {data} data ranks")
+    bs = args.batch_size // data
+    # the training reader takes its first trainviews - 1 sources in either
+    # mode, as the JAX CLI's does (BlendedMVSDataset samples them only in
+    # its mode "finetune", which neither CLI passes)
     train_ds = ds_cls(args.trainpath, args.trainlist, "train",
                       args.trainviews, args.numdepth)
-    eval_bs = args.batch_size if len(test_ds) >= args.batch_size \
-        else max(1, len(test_ds))
-    train_loader = Loader(train_ds, args.batch_size, shuffle=True,
+    train_idx = shard_indices(len(train_ds), policy)
+    test_idx = shard_indices(len(test_ds), policy)
+    n_test = len(test_ds) if test_idx is None else len(test_idx)
+    eval_bs = bs if n_test >= bs else max(1, n_test)
+    train_loader = Loader(train_ds, bs, shuffle=True,
                           num_workers=args.num_workers, drop_last=True,
-                          seed=args.seed)
+                          seed=args.seed, indices=train_idx)
     test_loader = Loader(test_ds, eval_bs, shuffle=False, drop_last=True,
-                         num_workers=args.num_workers)
+                         num_workers=args.num_workers, indices=test_idx)
 
-    # a model built from scratch takes torch's default initialisation,
-    # drawn from --seed
-    torch.manual_seed(args.seed)
-    model = EffiMVS(cfg)
-    state, payload, start_epoch = initial_state(args)
-    if state is not None:
-        model.load_state_dict(state, strict=True)
-    model.to(dev)
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"model parameters: {n_params}")
+    model, payload, start_epoch = load_model(args, cfg, dev)
+    main_rank = parallel.is_main()
+    if main_rank:
+        print(f"model parameters: "
+              f"{sum(p.numel() for p in model.parameters())}")
 
     total_steps = len(train_loader) * args.epochs + 100
     optimizer, scheduler, sched = make_optimizer(model, args.lr, total_steps,
@@ -169,11 +264,11 @@ def main(argv=None):
 
     train_step = T.make_train_step(model, optimizer, scheduler,
                                    args.lossrate, seed=args.seed + 1,
-                                   device=dev)
-    eval_step = T.make_eval_step(model, device=dev)
+                                   device=dev, policy=policy)
+    eval_step = T.make_eval_step(model, device=dev, policy=policy)
 
-    writer = MetricsWriter(args.logdir)
-    if args.resume and start_epoch > 0:
+    writer = MetricsWriter(args.logdir) if main_rank else None
+    if writer is not None and args.resume and start_epoch > 0:
         writer.event("resume", epoch=start_epoch,
                      ckpt=T.latest_checkpoint(args.logdir) or "")
 
@@ -186,15 +281,17 @@ def main(argv=None):
             gstep += 1
             if i % args.summary_freq == 0:
                 # drop the 13 per-prediction terms (l0..l12), keep 'loss'
-                m = {k: float(v) for k, v in metrics.items()
-                     if not (k[0] == "l" and k[1:].isdigit())}
-                writer.scalars(gstep, {**m, "lr": sched(gstep)},
-                               prefix="train/")
-                print(f"epoch {epoch} iter {i}/{len(train_loader)} "
-                      f"lr {sched(gstep):.2e} " +
-                      " ".join(f"{k}={v:.4f}" for k, v in m.items()),
-                      flush=True)
-        if epoch % args.save_freq == 0:
+                m = parallel.mean_metrics(
+                    {k: v for k, v in metrics.items()
+                     if not (k[0] == "l" and k[1:].isdigit())})
+                if main_rank:
+                    writer.scalars(gstep, {**m, "lr": sched(gstep)},
+                                   prefix="train/")
+                    print(f"epoch {epoch} iter {i}/{len(train_loader)} "
+                          f"lr {sched(gstep):.2e} " +
+                          " ".join(f"{k}={v:.4f}" for k, v in m.items()),
+                          flush=True)
+        if epoch % args.save_freq == 0 and main_rank:
             path = os.path.join(args.logdir, f"model_{epoch:06d}.ckpt")
             T.save_checkpoint(path, model, optimizer, scheduler, epoch)
             print(f"saved {path}")
@@ -204,12 +301,84 @@ def main(argv=None):
             batch.pop("filename", None)
             m, _ = eval_step(batch)
             meter.update(m)
-        means = meter.mean()
-        writer.scalars(gstep, means, prefix="eval/")
-        print(f"epoch {epoch} eval: " +
-              " ".join(f"{k}={v:.4f}" for k, v in means.items()) +
-              f" ({time.time() - t_epoch:.1f}s)", flush=True)
-    writer.close()
+        means = global_mean(meter)
+        if main_rank:
+            writer.scalars(gstep, means, prefix="eval/")
+            print(f"epoch {epoch} eval: " +
+                  " ".join(f"{k}={v:.4f}" for k, v in means.items()) +
+                  f" ({time.time() - t_epoch:.1f}s)", flush=True)
+    if writer is not None:
+        writer.close()
+    parallel.barrier()
+
+
+def load_model(args, cfg, dev):
+    """The network on ``dev`` from ``--loadckpt``, ``--resume`` or torch's
+    default initialisation drawn from ``--seed``; (model, checkpoint
+    payload or None, start epoch)."""
+    from effi_mvs_plus_tpu_torch.models import EffiMVS
+    torch.manual_seed(args.seed)
+    model = EffiMVS(cfg)
+    state, payload, start_epoch = initial_state(args)
+    if state is not None:
+        model.load_state_dict(state, strict=True)
+    return model.to(dev), payload, start_epoch
+
+
+def run_test(args, cfg, test_ds, dev):
+    """The eval suite of ``make_eval_step`` over the eval split, from
+    ``--loadckpt`` (or the newest checkpoint with ``--resume``); with
+    several processes each evaluates its round-robin share of the samples.
+    Returns the mean metrics."""
+    from effi_mvs_plus_tpu_torch import parallel
+    from effi_mvs_plus_tpu_torch.data.loader import Loader
+    from effi_mvs_plus_tpu_torch.train import trainer as T
+
+    model, _, _ = load_model(args, cfg, dev)
+    eval_step = T.make_eval_step(model, args.lossrate, device=dev)
+    idx = (parallel.partition(range(len(test_ds)))
+           if parallel.world_size() > 1 else None)
+    meter = T.DictMeter()
+    for batch in Loader(test_ds, args.batch_size,
+                        num_workers=args.num_workers, indices=idx):
+        batch.pop("filename", None)
+        m, _ = eval_step(batch)
+        meter.update(m)
+    means = global_mean(meter)
+    if parallel.is_main():
+        print("test: " + " ".join(f"{k}={v:.4f}" for k, v in means.items()),
+              flush=True)
+    return means
+
+
+def run_profile(args, cfg, test_ds, dev):
+    """Training steps on the first eval batch: 3 warm-up steps, 5 timed
+    (``utils/profiling.Timer``), then one step traced by ``torch.profiler``
+    into ``<logdir>/trace``.  Returns the seconds a step."""
+    from effi_mvs_plus_tpu_torch.data.loader import Loader
+    from effi_mvs_plus_tpu_torch.train import trainer as T
+    from effi_mvs_plus_tpu_torch.train.optim import make_optimizer
+    from effi_mvs_plus_tpu_torch.utils.profiling import Timer, profile_trace
+
+    model, _, _ = load_model(args, cfg, dev)
+    optimizer, scheduler, _ = make_optimizer(model, args.lr, 1000,
+                                             weight_decay=args.wd)
+    train_step = T.make_train_step(model, optimizer, scheduler,
+                                   args.lossrate, seed=0, device=dev)
+    batch = next(iter(Loader(test_ds, args.batch_size,
+                             num_workers=args.num_workers)))
+    batch.pop("filename", None)
+    batch = T.batch_to_device(batch, dev)
+
+    dt = Timer(lambda: train_step(batch), warmup=3, iters=5,
+               device=dev).measure()
+    print(f"profile: {dt * 1e3:.1f} ms/step "
+          f"({args.batch_size / dt:.2f} samples/s)", flush=True)
+    trace_dir = os.path.join(args.logdir, "trace")
+    with profile_trace(trace_dir, dev):
+        train_step(batch)
+    print(f"trace written to {trace_dir}", flush=True)
+    return dt
 
 
 if __name__ == "__main__":

@@ -4,14 +4,13 @@ The port's copy of ``effi_mvs_plus_tpu/config.py``: the reference's
 shell presets become named ``PROFILES``, and ``apply_profile_defaults``
 points an argparse parser's defaults at one; the fusion constants
 (``DypcdParams``, ``TankParams``, ``TANK_FILTER_CONFIGS``) live here once.
-``EffiMVSConfig`` is the port's own (``models/effi_mvs.py``).  The
-BlendedMVS finetune profile comes with the slice that ports finetuning.
+``EffiMVSConfig`` is the port's own (``models/effi_mvs.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from effi_mvs_plus_tpu_torch.models.effi_mvs import EffiMVSConfig
 
@@ -32,7 +31,7 @@ class DataConfig:
 class TrainConfig:
     """Optimizer, schedule and loop."""
     epochs: int = 16
-    batch_size: int = 16
+    batch_size: int = 16         # the global batch, split over data ranks
     lr: float = 1e-3
     weight_decay: float = 1e-3
     loss_rate: float = 1.0
@@ -87,6 +86,7 @@ class RunProfile:
     data: DataConfig
     train: Optional[TrainConfig] = None
     fusion: Optional[DypcdParams] = None
+    lists: Tuple[str, ...] = ()          # the repo's scan lists
 
 
 _DTU_ARCH = EffiMVSConfig()                            # ndepths (48,8,8)
@@ -97,12 +97,21 @@ PROFILES = {
     "dtu_train": RunProfile(
         name="dtu_train", model=_DTU_ARCH,
         data=DataConfig(dataset="dtu_yao", nviews=5),
-        train=TrainConfig()),
+        train=TrainConfig(),
+        lists=("lists/dtu/train.txt", "lists/dtu/test.txt")),
+    # BlendedMVS fine-tuning (96-hypothesis sweep, 7 views)
+    "blend_finetune": RunProfile(
+        name="blend_finetune", model=_TANK_ARCH,
+        data=DataConfig(dataset="blend", nviews=7),
+        train=TrainConfig(epochs=10, batch_size=8, lr=4e-4),
+        lists=("lists/bld/training_list.txt",
+               "lists/bld/validation_list.txt")),
     # DTU evaluation + dypcd fusion
     "dtu_eval": RunProfile(
         name="dtu_eval", model=_DTU_ARCH,
         data=DataConfig(dataset="general_eval", nviews=5),
-        fusion=DypcdParams()),
+        fusion=DypcdParams(),
+        lists=("lists/dtu/test.txt",)),
     # Tanks & Temples at 1920x1056, 11 views
     "tank_eval": RunProfile(
         name="tank_eval", model=_TANK_ARCH,

@@ -3,13 +3,14 @@
 
 * DTUTrainDataset     — DTU training (Yao Yao's preprocessed set)
 * GeneralEvalDataset  — DTU testing layout, file-list driven
+* BlendedMVSDataset   — BlendedMVS low-res fine-tuning
 * TanksDataset        — Tanks & Temples
 
 ``__getitem__`` returns a dict of numpy arrays, channels-last:
   imgs            (V, H, W, 3) float32 in [0,1]
   proj_matrices   {'stage0'..'stage4': (V, 2, 4, 4)}
   depth_values    (Nd,) ascending inverse depths
-  [depth, mask]   {'stage1'..'stage4': (h, w)}        (training set)
+  [depth, mask]   {'stage1'..'stage4': (h, w)}        (training sets)
   filename        output-path template
 
 The JAX readers resize with its C++ data plane or cv2; the port may use
@@ -328,6 +329,89 @@ class GeneralEvalDataset:
             "imgs": np.stack(imgs).astype(np.float32, copy=False),
             "proj_matrices": {k: np.stack([p[k] for p in projs])
                               for k in projs[0]},
+            "depth_values": depth_values,
+            "filename": scan + "/{}/" + f"{view_ids[0]:08d}" + "{}",
+        }
+
+
+class BlendedMVSDataset:
+    """BlendedMVS low-res fine-tuning reader (768x576 images).
+
+    Layout ``<root>/<scan>/{blended_images/NNNNNNNN.jpg,
+    cams/NNNNNNNN_cam.txt, cams/pair.txt,
+    rendered_depth_maps/NNNNNNNN.pfm}``.  A ref with fewer than 7 sources
+    is dropped; cam line 11 is [depth_min, interval, num, depth_max]; the
+    sweep is ``linspace(1/depth_max, 1/depth_min, ndepths,
+    endpoint=False)`` (descending with ``disp_max_first``); the mask is
+    the ground truth inside [depth_min, depth_max]; intrinsics are divided
+    by 4 to the stage-2 baseline.  ``mode == "finetune"`` samples the
+    sources with ``rng.sample`` (``random.Random(0)`` unless one is
+    given); every other mode takes the first ``nviews - 1``.
+    """
+
+    def __init__(self, datapath, listfile, mode, nviews, ndepths=384,
+                 disp_max_first=False, rng=None):
+        self.datapath = datapath
+        self.mode = mode
+        self.nviews = nviews
+        self.ndepths = ndepths
+        self.disp_max_first = disp_max_first
+        self.rng = rng or random.Random(0)
+        self.metas = []
+        for scan in _read_scan_list(listfile):
+            pair_path = os.path.join(datapath, scan, "cams", "pair.txt")
+            for ref, srcs in camio.read_pair_file(pair_path):
+                if len(srcs) >= 7:
+                    self.metas.append((scan, ref, srcs))
+
+    def __len__(self):
+        return len(self.metas)
+
+    def __getitem__(self, idx):
+        scan, ref, srcs = self.metas[idx]
+        if self.mode == "finetune":
+            src_ids = self.rng.sample(srcs, self.nviews - 1)
+        else:
+            src_ids = srcs[:self.nviews - 1]
+        view_ids = [ref] + src_ids
+
+        imgs, projs = [], []
+        depth_values = depth_ms = mask_ms = None
+        for i, vid in enumerate(view_ids):
+            img = _imread(os.path.join(
+                self.datapath, scan, f"blended_images/{vid:08d}.jpg"))
+            cam = camio.read_cam_file(os.path.join(
+                self.datapath, scan, f"cams/{vid:08d}_cam.txt"))
+            intr = cam["intrinsics"].copy()
+            intr[:2, :] /= 4.0     # the stage-2 baseline is quarter res
+            projs.append(camio.stage_proj_matrices(cam["extrinsics"], intr))
+            imgs.append(img)
+            if i == 0:
+                fields = cam["depth_fields"]
+                depth_min, depth_max = fields[0], fields[-1]
+                lo, hi = 1.0 / depth_max, 1.0 / depth_min
+                if self.disp_max_first:
+                    depth_values = np.linspace(
+                        hi, lo, self.ndepths, endpoint=False,
+                        dtype=np.float32)
+                else:
+                    depth_values = np.linspace(
+                        lo, hi, self.ndepths, endpoint=False,
+                        dtype=np.float32)
+                depth = read_pfm(os.path.join(
+                    self.datapath, scan,
+                    f"rendered_depth_maps/{vid:08d}.pfm"))[0]
+                mask = ((depth >= depth_min) & (depth <= depth_max)
+                        ).astype(np.float32)
+                depth_ms = _gt_pyramid(depth)
+                mask_ms = _gt_pyramid(mask)
+
+        return {
+            "imgs": np.stack(imgs).astype(np.float32),
+            "proj_matrices": {k: np.stack([p[k] for p in projs])
+                              for k in projs[0]},
+            "depth": depth_ms,
+            "mask": mask_ms,
             "depth_values": depth_values,
             "filename": scan + "/{}/" + f"{view_ids[0]:08d}" + "{}",
         }

@@ -31,10 +31,12 @@ def _collate(samples):
 class Loader:
     """Iterable over collated batches with background prefetch.  With
     ``shuffle`` the order of epoch e is a permutation drawn from
-    ``numpy.random.default_rng(seed + e)``."""
+    ``numpy.random.default_rng(seed + e)``.  ``indices`` restricts the
+    loader to those samples, in that order before shuffling: a rank's
+    shard in multi-process training."""
 
     def __init__(self, dataset, batch_size=1, shuffle=False, num_workers=4,
-                 drop_last=False, seed=0, prefetch=4):
+                 drop_last=False, seed=0, prefetch=4, indices=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -42,16 +44,22 @@ class Loader:
         self.drop_last = drop_last
         self.seed = seed
         self.prefetch = prefetch
+        self.indices = None if indices is None else np.asarray(list(indices))
         self._epoch = 0
 
+    def _n_samples(self):
+        return (len(self.dataset) if self.indices is None
+                else len(self.indices))
+
     def __len__(self):
-        n = len(self.dataset)
+        n = self._n_samples()
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def _batch_indices(self):
-        idx = np.arange(len(self.dataset))
+        idx = (np.arange(len(self.dataset)) if self.indices is None
+               else self.indices.copy())
         if self.shuffle:
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
         batches = [idx[i:i + self.batch_size]

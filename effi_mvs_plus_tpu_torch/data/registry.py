@@ -1,6 +1,5 @@
 """Dataset registry: the names a profile's or a CLI's ``--dataset``
-takes.  The BlendedMVS reader of the JAX package is still to be ported.
-"""
+takes, and ``register_dataset`` for a reader of one's own."""
 
 from __future__ import annotations
 
@@ -10,7 +9,10 @@ _REGISTRY = {
     "dtu_yao": _ds.DTUTrainDataset,
     "dtu": _ds.DTUTrainDataset,
     "general_eval": _ds.GeneralEvalDataset,
+    "blend": _ds.BlendedMVSDataset,
+    "blendedmvs": _ds.BlendedMVSDataset,
     "tank": _ds.TanksDataset,
+    "tanks": _ds.TanksDataset,
 }
 
 
@@ -18,6 +20,11 @@ def find_dataset(name):
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise ValueError(f"dataset {name!r} is not in the port (yet); "
-                         f"available: {sorted(_REGISTRY)}") from None
+        raise ValueError(f"unknown dataset {name!r}; available: "
+                         f"{sorted(_REGISTRY)}") from None
 
+
+def register_dataset(name, cls):
+    """Register a dataset class or factory under ``name`` (usable as
+    ``--dataset`` in the CLIs)."""
+    _REGISTRY[name] = cls

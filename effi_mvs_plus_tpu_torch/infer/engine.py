@@ -4,7 +4,11 @@ Port of ``effi_mvs_plus_tpu/infer/engine.py``: the forward per batch of
 reference views, the final depth + confidence pulled to the host and
 written as PFM + cam text + preview jpg per reference view.  Runs on
 ``cuda`` unless the caller passes another device; the forward runs under
-``torch.inference_mode()``.
+``torch.inference_mode()``.  With ``shard_views`` in a multi-process run
+the ranks cooperate on every batch: each runs its block of the source
+views (``parallel/mesh.py``), every rank gets the whole maps, and rank 0
+writes them.  The JAX engine's in-process batch split (``_fit_devices``)
+becomes the CLIs' per-rank partition of scans and scenes.
 """
 
 from __future__ import annotations
@@ -19,13 +23,15 @@ from effi_mvs_plus_tpu_torch.data import cams as camio
 from effi_mvs_plus_tpu_torch.data.pfm import save_pfm
 from effi_mvs_plus_tpu_torch.models import (EffiMVSConfig, build_model,
                                              freeze_kernel_weights)
+from effi_mvs_plus_tpu_torch.parallel import distributed as D
+from effi_mvs_plus_tpu_torch.parallel import mesh as par
 
 _STAGES = ("stage1", "stage2", "stage3")
 
 
 class InferenceEngine:
     def __init__(self, state_dict, cfg: EffiMVSConfig = EffiMVSConfig(),
-                 buckets=None, device=None):
+                 buckets=None, device=None, shard_views=False):
         """state_dict: the network's weights (``io.load_npz_checkpoint``
         or ``io.params_from_jax``), loaded strictly.  device: ``cuda``
         unless the caller names another; with no GPU the default raises.
@@ -35,16 +41,25 @@ class InferenceEngine:
         holds it and the outputs are cropped back: the pad rim lies beyond
         every real pixel, the principal point does not move, and zeros
         match the warp's out-of-image convention, so real-area depths are
-        unaffected outside a receptive-field-wide edge band."""
+        unaffected outside a receptive-field-wide edge band.
+
+        shard_views: in a multi-process run (``parallel.initialize``), put
+        every rank on the model axis (data = 1) and split the source views
+        of each batch over the ranks; every rank must then run the same
+        batches.  A single process ignores it."""
         self.model = freeze_kernel_weights(build_model(state_dict, cfg,
                                                        device))
+        self._policy = None
+        if shard_views and D.world_size() > 1:
+            self._policy = par.ShardingPolicy(
+                D.global_mesh(model=D.world_size()))
         self.device = next(self.model.parameters()).device
         self.cfg = cfg
         self.buckets = (sorted(buckets, key=lambda hw: hw[0] * hw[1])
                         if buckets else None)
 
     def _run(self, imgs, proj_matrices, depth_values):
-        with torch.inference_mode():
+        with torch.inference_mode(), par.use_policy(self._policy):
             out = self.model(imgs, proj_matrices, depth_values)
             return (out["depth"][-1].float(),
                     out["photometric_confidence"].float())
@@ -135,7 +150,8 @@ class InferenceEngine:
 
     def save_scene_depths(self, loader, outdir, verbose=True):
         """Run a whole eval loader, writing depth_est/ confidence/ cams/
-        images/ in the reference output layout.  Returns
+        images/ in the reference output layout (view-sharded: rank 0
+        writes).  Returns
         {'maps', 'total_s', 's_per_map', 'device_s'}: host wall time, and
         on a GPU the forwards' device time from CUDA events (None on the
         CPU).
@@ -149,6 +165,7 @@ class InferenceEngine:
         q: queue.Queue = queue.Queue(maxsize=2)
         state = {"maps": 0, "err": None, "device_ms": 0.0}
         on_gpu = self.device.type == "cuda"
+        writes = self._policy is None or D.is_main()
 
         def writer():
             while True:
@@ -157,7 +174,10 @@ class InferenceEngine:
                     return
                 try:
                     batch, depth, conf, events = item
-                    wrote = self._write_batch(outdir, batch, depth, conf)
+                    if writes:
+                        wrote = self._write_batch(outdir, batch, depth, conf)
+                    else:
+                        wrote = depth.shape[0]
                     if events is not None:
                         events[1].synchronize()
                         state["device_ms"] += events[0].elapsed_time(

@@ -34,6 +34,12 @@ feature net and per source view in PixelwiseNet (``stat_groups``), the
 update blocks apply channel dropout, and the forward detaches where the
 reference does — the stage-1 entropy input, the current depth of stages
 2-3 and the GRU iterate.
+
+Under a view-sharding policy (``parallel/mesh.py``) each model rank runs
+the FPN on the reference and its block of source views, the warps and
+``PixelwiseNet`` on that block, and all-reduces the view-weighted sums
+``sim_sum`` and ``w_sum``; the rest runs replicated.  Without a policy
+the hooks are identities.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from effi_mvs_plus_tpu_torch.models import blocks
 from effi_mvs_plus_tpu_torch.ops import (
     convex_upsample, cuda_warp, depth_regression, photometric_confidence,
     resample_volume_at_depths)
+from effi_mvs_plus_tpu_torch.parallel import mesh as par
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,10 +149,23 @@ class EffiMVS(tnn.Module):
                                           _bshape(depth_min_g, disp.dim()),
                                           _bshape(depth_max_g, disp.dim()))
 
-        # feature extraction: all views through the FPN in one batch, with
+        # the source views this rank runs: all of them unless the views
+        # are sharded, then a block [start, stop) and the reference
+        start, stop = par.local_source_views(V - 1)
+
+        def own_views(x):
+            if (start, stop) == (0, V - 1):
+                return x
+            return torch.cat([x[:, :1], x[:, 1 + start:1 + stop]], 1)
+        imgs_own = own_views(imgs)
+        Vo = imgs_own.shape[1]
+
+        # feature extraction: the views through the FPN in one batch, with
         # per-view BN statistics in train mode
-        feats = self.feature(imgs.reshape(B * V, H, W, 3), stat_groups=V)
-        feats = {k: v.reshape(B, V, *v.shape[1:]) for k, v in feats.items()}
+        with par.view_stats(V - 1, has_ref=True):
+            feats = self.feature(imgs_own.reshape(B * Vo, H, W, 3),
+                                 stat_groups=Vo)
+        feats = {k: v.reshape(B, Vo, *v.shape[1:]) for k, v in feats.items()}
         cnet = self.cnet_depth(imgs[:, 0])
 
         hiddens, contexts = [], []
@@ -164,10 +184,10 @@ class EffiMVS(tnn.Module):
         vol_dmin = vol_dmax = None            # their per-pixel depth ranges
 
         for s in range(cfg.num_stage):
-            f = feats[f"stage{s + 1}"]                       # (B,V,h,w,C)
+            f = feats[f"stage{s + 1}"]                       # (B,Vo,h,w,C)
             h, w = f.shape[2], f.shape[3]
-            P = geometry.compose_projection(
-                proj_matrices[f"stage{s + 1}"].float())      # (B,V,4,4)
+            P = geometry.compose_projection(                 # (B,Vo,4,4)
+                own_views(proj_matrices[f"stage{s + 1}"]).float())
             ref_fea = f[:, 0]
             interval_s = depth_interval * cfg.depth_intervals_ratio[s]
             rots, trs = _relative_projections(P)
@@ -179,17 +199,19 @@ class EffiMVS(tnn.Module):
                     depth_values, cfg.ndepths[0], 1, 1)
                 depth_hyps = (1.0 / drs).expand(B, cfg.ndepths[0], h, w)
                 sims = cuda_warp.warp_correlate_views(
-                    ref_fea, f[:, 1:], rots, trs, depth_hyps)  # (B,V-1,D,h,w)
+                    ref_fea, f[:, 1:], rots, trs, depth_hyps)  # (B,Vo-1,D,h,w)
                 # in bf16 mode the entropy runs on the bf16 correlations
                 pnorm = nn.softmax(sims.detach(), dim=2)
                 entropy = -torch.sum(pnorm * torch.log(pnorm + 1e-7), dim=2)
-                vw = self.PixelwiseNet(
-                    entropy.reshape(B * (V - 1), h, w, 1).to(dt),
-                    stat_groups=V - 1)
-                view_weights = vw.reshape(B, V - 1, h, w)
-                vw_ = view_weights[:, :, None]               # (B,V-1,1,h,w)
-                sim_sum = torch.sum(sims * vw_, dim=1)       # (B,D,h,w)
-                w_sum = torch.sum(vw_, dim=1)                # (B,1,h,w)
+                with par.view_stats(V - 1, has_ref=False):
+                    vw = self.PixelwiseNet(
+                        entropy.reshape(B * (Vo - 1), h, w, 1).to(dt),
+                        stat_groups=Vo - 1)
+                view_weights = vw.reshape(B, Vo - 1, h, w)
+                vw_ = view_weights[:, :, None]               # (B,Vo-1,1,h,w)
+                sim_sum, w_sum = par.sum_views(
+                    torch.sum(sims * vw_, dim=1),            # (B,D,h,w)
+                    torch.sum(vw_, dim=1))                   # (B,1,h,w)
                 similarity = (sim_sum / (w_sum + 1e-6))[..., None]
 
                 prob_pre, _ = self.cost_regularization(similarity.to(dt))
@@ -216,8 +238,8 @@ class EffiMVS(tnn.Module):
                 sims = cuda_warp.warp_correlate_views(
                     ref_fea, f[:, 1:], rots, trs, depth_samples)
                 vw_ = view_weights[:, :, None]
-                sim_sum = torch.sum(sims * vw_, dim=1)
-                w_sum = torch.sum(vw_, dim=1)
+                sim_sum, w_sum = par.sum_views(torch.sum(sims * vw_, dim=1),
+                                               torch.sum(vw_, dim=1))
                 fresh = (sim_sum / (w_sum + 1e-6))[..., None]  # (B,8,h,w,1)
 
                 new_dmax = depth_samples[:, 0:1]             # (B,1,h,w)

@@ -21,14 +21,19 @@ shipped state dict.
   place with the unbiased variance and momentum 0.1.  With ``groups=G``
   the leading axis is (B, G) flattened and each group has its own
   statistics, the per-view BN of the reference, which runs its views
-  through the network one at a time.
+  through the network one at a time.  Under a data-parallel policy
+  (``parallel/mesh.py``) the sums and sums of squares are all-reduced
+  over the data group first, so the statistics are the global batch's;
+  inside ``parallel.view_stats`` the running update gathers every view's
+  statistics from the model group.
 * ``softmax`` — op by op as XLA computes ``jax.nn.softmax``, each step
   rounded to the input's dtype, where ``torch.softmax`` rounds once at
   the end.  ``sigmoid`` — the same in bf16; ``torch.sigmoid`` in fp32,
   for its finite gradient.
 * ``ChannelDropout`` — Dropout2d: one keep/drop per (sample, channel),
   scaled by 1/(1-p), in train mode only; its random draws come from the
-  module's ``generator`` (``use_generator`` sets it model-wide).
+  module's ``generator`` (``use_generator`` sets it model-wide); a data
+  rank draws the global batch's mask and keeps its own rows.
 
 The modules below hold parameters under the reference state-dict names
 (``conv.weight``, ``bn.running_mean`` ...) with torch's default
@@ -42,6 +47,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from effi_mvs_plus_tpu_torch.parallel import mesh as par
 
 MOMENTUM = 0.1
 
@@ -95,13 +102,16 @@ def sigmoid(x):
     return 1 / (1 + torch.exp(-x))
 
 
-def _update_running(bn, mean, unbiased, g):
+def _update_running(bn, mean, unbiased):
     """The reference updates the running statistics once per view, in
-    order: r' = (1-m)^g r + sum_v m (1-m)^(g-1-v) stat_v."""
+    order: r' = (1-m)^g r + sum_v m (1-m)^(g-1-v) stat_v over the g
+    groups (under view sharding, every rank's views)."""
     m = MOMENTUM
-    w = m * (1 - m) ** torch.arange(g - 1, -1, -1, dtype=torch.float32,
-                                    device=mean.device)
     with torch.no_grad():
+        mean, unbiased = par.gather_view_stats(mean, unbiased)
+        g = mean.shape[0]
+        w = m * (1 - m) ** torch.arange(g - 1, -1, -1, dtype=mean.dtype,
+                                        device=mean.device)
         bn.running_mean.copy_((1 - m) ** g * bn.running_mean + w @ mean)
         bn.running_var.copy_((1 - m) ** g * bn.running_var + w @ unbiased)
         bn.num_batches_tracked.add_(g)
@@ -119,13 +129,15 @@ def batch_norm(x, bn, groups=1):
         return x * scale + shift
     g = int(groups)
     xg = x.reshape(x.shape[0] // g, g, *x.shape[1:])
-    xf = xg.float()
+    xf = xg.to(torch.promote_types(xg.dtype, torch.float32))  # >= fp32
     axes = (0,) + tuple(range(2, xg.dim() - 1))
-    mean = xf.mean(axes)                                   # (g, C)
-    var = (xf * xf).mean(axes) - mean * mean
-    n = xg.numel() // (g * xg.shape[-1])
-    _update_running(bn, mean.detach(), var.detach() * (n / max(n - 1, 1)),
-                    g)
+    # sums over this rank's rows, then over the data group's (the
+    # identity without a data-parallel policy): the global batch's
+    n = xg.numel() // (g * xg.shape[-1]) * par.data_parallel()
+    sums = par.reduce_data(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]))
+    mean = sums[0] / n                                     # (g, C)
+    var = sums[1] / n - mean * mean
+    _update_running(bn, mean.detach(), var.detach() * (n / max(n - 1, 1)))
     inv = torch.rsqrt(var + bn.eps)
     bshape = (1, g) + (1,) * (xg.dim() - 3) + (-1,)
     scale = (bn.weight * inv).reshape(bshape).to(x.dtype)
@@ -196,9 +208,10 @@ class ChannelDropout(nn.Module):
     def forward(self, x):
         if not self.training or self.p <= 0:
             return x
-        shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
-        keep = torch.rand(shape, generator=self.generator,
-                          device=x.device) >= self.p
+        rows, first = par.dropout_rows(x.shape[0])
+        shape = (rows,) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+        keep = torch.rand(shape, generator=self.generator, device=x.device
+                          )[first:first + x.shape[0]] >= self.p
         return torch.where(keep, x / (1.0 - self.p),
                            torch.zeros((), dtype=x.dtype, device=x.device)
                            ).to(x.dtype)

@@ -1,0 +1,7 @@
+from effi_mvs_plus_tpu_torch.parallel.mesh import (  # noqa: F401
+    Mesh, ShardingPolicy, layout_kinds, make_mesh, use_policy, view_blocks,
+)
+from effi_mvs_plus_tpu_torch.parallel.distributed import (  # noqa: F401
+    barrier, global_mesh, initialize, is_main, mean_metrics, partition,
+    rank, rank_device, world_size,
+)

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from effi_mvs_plus_tpu_torch.parallel import mesh as par
+
 PRED_STAGE_MAP = (1, 1, 1, 1, 2, 2, 2, 2, 3, 3, 3, 3, 4)
 
 
@@ -22,8 +24,11 @@ def smooth_l1(x, y):
 
 
 def masked_mean(values, mask):
+    """Mean of values over the mask; under a data-parallel policy over
+    the global batch (sum and count all-reduced over the data group)."""
     w = mask.to(values.dtype)
-    return (values * w).sum() / w.sum().clamp_min(1.0)
+    num, den = par.reduce_data(torch.stack([(values * w).sum(), w.sum()]))
+    return num / den.clamp_min(1.0)
 
 
 def mvs_loss(depth_preds, depth_gt_stages, mask_stages, loss_rate=1.0,

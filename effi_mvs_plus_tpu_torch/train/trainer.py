@@ -9,7 +9,11 @@ the BN running statistics update during the forward.
 
 Each step lives on one device, ``cuda`` unless the caller passes
 ``device="cpu"``, and raises without a GPU; the model must already be on
-that device.  Batches are the loader's numpy pytrees.
+that device.  Batches are the loader's numpy pytrees.  With a
+``ShardingPolicy`` (``parallel/mesh.py``) the step runs under it: each
+data rank passes its rows of the global batch, the forward and the loss
+compute what the whole batch computes, and the gradients are averaged
+over the grid's groups before AdamW (``ShardingPolicy.sync_gradients``).
 
 Checkpoints are ``model_NNNNNN.ckpt`` files written with ``torch.save``:
 ``{"model", "optimizer", "scheduler", "epoch"}``, where ``"model"`` is the
@@ -25,6 +29,7 @@ import torch
 
 from effi_mvs_plus_tpu_torch import nn
 from effi_mvs_plus_tpu_torch.device import resolve_device
+from effi_mvs_plus_tpu_torch.parallel import mesh as par
 from effi_mvs_plus_tpu_torch.train.loss import (abs_depth_error, mvs_loss,
                                                 threshold_error)
 
@@ -64,11 +69,13 @@ def _final_metrics(final_depth, batch):
 
 
 def make_train_step(model, optimizer, scheduler, loss_rate=1.0, seed=0,
-                    device=None):
+                    device=None, policy=None):
     """Returns ``step(batch) -> metrics`` (0-d tensors on the device):
     loss, abs_depth_error, thres{2,4,8}mm_error and the 13
     per-prediction losses l0..l12.  Dropout masks come from a generator
-    the step owns, seeded with ``seed``."""
+    the step owns, seeded with ``seed`` (the same on every rank).  Under
+    ``policy`` the loss and its terms are the global batch's; the other
+    metrics are this rank's rows'."""
     dev = resolve_device(device)
     _check_model_device(model, dev)
     gen = torch.Generator(device=dev)
@@ -78,11 +85,14 @@ def make_train_step(model, optimizer, scheduler, loss_rate=1.0, seed=0,
     def step(batch):
         batch = batch_to_device(batch, dev)
         model.train()
-        out = model(*(batch[k] for k in _MODEL_INPUTS))
-        loss, per = mvs_loss(out["depth"], batch["depth"], batch["mask"],
-                             loss_rate)
+        with par.use_policy(policy):
+            out = model(*(batch[k] for k in _MODEL_INPUTS))
+            loss, per = mvs_loss(out["depth"], batch["depth"], batch["mask"],
+                                 loss_rate)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if policy is not None:
+            policy.sync_gradients(model)
         optimizer.step()
         scheduler.step()
         with torch.no_grad():
@@ -107,18 +117,19 @@ _BANDS = (("thres2mm_abserror", (0.0, 2.0)),
           ("thres>20mm_abserror", (20.0, 1e5)))
 
 
-def make_eval_step(model, loss_rate=1.0, device=None):
+def make_eval_step(model, loss_rate=1.0, device=None, policy=None):
     """Returns ``step(batch) -> (metrics, final depth)``, no gradients, the
     model in eval mode: loss, depth_loss (the last prediction's),
     abs_depth_error, thresholds 0.125/0.25/0.5/1/20 mm, six banded
-    absolute errors and l0..l12 — the reference's eval scalar suite."""
+    absolute errors and l0..l12 — the reference's eval scalar suite;
+    under ``policy`` as for the train step."""
     dev = resolve_device(device)
     _check_model_device(model, dev)
 
     def step(batch):
         batch = batch_to_device(batch, dev)
         model.eval()
-        with torch.inference_mode():
+        with torch.inference_mode(), par.use_policy(policy):
             out = model(*(batch[k] for k in _MODEL_INPUTS))
             depth = out["depth"][-1]
             total, per = mvs_loss(out["depth"], batch["depth"],

@@ -121,9 +121,18 @@ def test_dtu_cli_fuses_on_the_requested_device(tmp_path, monkeypatch, flags,
 
 
 def test_inference_clis_refuse_what_is_not_ported(tmp_path):
-    with pytest.raises(SystemExit, match="not ported"):
-        test_tank.main(["--testpath", str(tmp_path), "--loadckpt", "x.npz",
-                        "--shard_views"])
+    """Nothing of either CLI is refused any more: ``--shard_views`` is
+    taken, and a single process runs the engine unsharded; without a GPU
+    the default device raises."""
+    from effi_mvs_plus_tpu_torch.infer import InferenceEngine
+    from effi_mvs_plus_tpu_torch.io import load_npz_checkpoint
+    args = test_tank.build_parser().parse_args(
+        ["--testpath", str(tmp_path), "--loadckpt", "x.npz",
+         "--shard_views"])
+    assert args.shard_views
+    eng = InferenceEngine(load_npz_checkpoint(CKPT.format("tank")),
+                          device="cpu", shard_views=True)
+    assert eng._policy is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             test_tank.main(["--testpath", str(tmp_path), "--loadckpt",

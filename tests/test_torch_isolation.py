@@ -1,6 +1,7 @@
 """The port stands alone: no module of effi_mvs_plus_tpu_torch/ and no line
 of chip_smoke.py or of the port's scripts imports jax or the JAX package
-(an AST scan)."""
+(an AST scan); and the train CLI's options that stay unported are
+refused with their reason."""
 
 import ast
 import os
@@ -56,5 +57,24 @@ def test_scan_sees_the_package():
                 "config.py", "data/datasets.py", "ops/cuda_conv.py",
                 "fuse/dypcd.py", "fuse/ply.py", "eval/dtu.py",
                 "cli/test_tank.py", "cli/test_dtu.py", "cli/eval_dtu.py",
-                "ops/conv_pack.py", "ops/rounding_bounds.py"):
+                "ops/conv_pack.py", "ops/rounding_bounds.py",
+                "utils/profiling.py", "parallel/__init__.py",
+                "parallel/distributed.py", "parallel/mesh.py",
+                "parallel/equivalence.py", "data/registry.py",
+                "data/loader.py", "infer/engine.py"):
         assert f"effi_mvs_plus_tpu_torch/{new}" in rel
+
+
+@pytest.mark.parametrize("flag,why", [
+    (["--device_cache"], "a GPU host has no such link"),
+    (["--shard_policy", "depth"], "ROADMAP A11b"),
+    (["--shard_policy", "spatial"], "measured 8x worse"),
+    (["--shard_policy", "views,spatial"], "measured 8x worse"),
+    (["--shard_policy", "rows"], "unknown layout"),
+    (["--shard_policy", ""], "no model-axis layout")])
+def test_train_cli_refusals_give_their_reason(flag, why):
+    """The train CLI's flags that stay unported refuse before any work,
+    each naming why (the device cache) or its ROADMAP item."""
+    from effi_mvs_plus_tpu_torch.cli import train
+    with pytest.raises(SystemExit, match=why):
+        train.main(flag + ["--device", "cpu"])
