@@ -59,7 +59,10 @@ imports nothing of JAX.  It
    -> ``InferenceEngine(device="cuda")`` with ``model_tank.npz``, 96/8/8,
    bf16) and ``fuse_scene_tank`` (the deployed Horse filter) into a PLY, scores it against the plane with ``eval/dtu.py``,
    and holds one fp32 forward with every kernel against one with every
-   plain version;
+   plain version; then (``a12``) runs the static and legacy fusion on
+   the saved maps on the card and on the CPU and holds the masks and
+   values to each other, and times the native data plane's resize of a
+   1920x1080 view beside the reader's numpy resize;
 7. drives BlendedMVS fine-tuning: renders a textured plane at 768x576
    for 17 cameras into a BlendedMVS tree with its depths, runs
    ``cli/train.py``'s ``main`` with ``--mode finetune`` (the
@@ -72,8 +75,11 @@ imports nothing of JAX.  It
 8. spawns two ranks on the one card (gloo on CUDA tensors: NCCL refuses
    two ranks on one device) and holds a data-parallel fine-tune step
    (4 + 4), a view-sharded one (3 + 3 sources) and the view-sharded engine
-   on a DTU request against this process's single-process results
-   (``parallel/equivalence.py``, the JAX gate's bounds); NCCL across
+   on a DTU request, then the depth-sharded step (48 + 48 stage-1
+   hypotheses) and the JAX CLI's default ``views,depth``, against this
+   process's single-process results (``parallel/equivalence.py``, the JAX
+   gate's bounds), with each rank's peak memory, after K1 on each D-block
+   of the expanded stage-1 sweep against its plain version; NCCL across
    cards is not exercised;
 9. prints each phase's seconds, a ``{"kernels": [...]}`` line (K2 and K4
    entries name the CUDA route of each layer in ``cuda_route``: ``mma``
@@ -1450,8 +1456,125 @@ def tank_path(torch, root):
              "inference_peak_mem_gb": peak_gb})
         with torch.inference_mode():
             tank_inplace(torch, root, data)
+        a12_phase(torch, data, os.path.join(out, "Horse"))
     torch.cuda.empty_cache()
     return counts
+
+
+def a12_phase(torch, data, scene_out):
+    """The static and legacy fusion on the T&T path's saved maps (the first
+    reference of pair.txt and its first 4 sources, 1920x1056): each call
+    on the card against the same call on the CPU; then the native data
+    plane's resize of one 1920x1080 view to the T&T reader's 1920x1056
+    against the reader's numpy resize, both timed on this host."""
+    from effi_mvs_plus_tpu_torch import native
+    from effi_mvs_plus_tpu_torch.data import read_cam_file, read_pair_file
+    from effi_mvs_plus_tpu_torch.data.datasets import (_resize_bilinear,
+                                                       tank_split)
+    from effi_mvs_plus_tpu_torch.data.pfm import read_pfm
+    from effi_mvs_plus_tpu_torch.fuse import legacy, static
+    t0 = time.perf_counter()
+    ref, srcs = read_pair_file(os.path.join(data, tank_split("Horse"),
+                                            "Horse", "pair.txt"))[0]
+    views = []
+    for vid in [ref] + srcs[:4]:
+        cam = read_cam_file(os.path.join(scene_out, "cams",
+                                         f"{vid:08d}_cam.txt"))
+        depth = read_pfm(os.path.join(scene_out, "depth_est",
+                                      f"{vid:08d}.pfm"))[0]
+        conf = read_pfm(os.path.join(scene_out, "confidence",
+                                     f"{vid:08d}.pfm"))[0]
+        conf = np.repeat(np.repeat(conf, depth.shape[0] // conf.shape[0],
+                                   0), depth.shape[1] // conf.shape[1], 1)
+        proj = np.zeros((2, 4, 4), np.float32)
+        proj[0], proj[1, :3, :3], proj[1, 3, 3] = (cam["extrinsics"],
+                                                  cam["intrinsics"], 1.0)
+        views.append((depth, conf, cam["intrinsics"], cam["extrinsics"],
+                      proj))
+
+    def t(a, dev):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    r, sv = views[0], views[1:]
+    stat_args = {dev: (t(r[0], dev), t(r[1], dev), t(r[2], dev),
+                       t(r[3], dev), t(np.stack([v[0] for v in sv]), dev),
+                       t(np.stack([v[2] for v in sv]), dev),
+                       t(np.stack([v[3] for v in sv]), dev))
+                 for dev in ("cuda", "cpu")}
+    leg_args = {dev: (t(r[0], dev), t(np.stack([v[0] for v in sv]), dev),
+                      t(r[4], dev), t(np.stack([v[4] for v in sv]), dev))
+                for dev in ("cuda", "cpu")}
+
+    def flips(a, b):
+        return float((a.cpu() != b.cpu()).float().mean())
+
+    def share_over(a, b, tol):
+        return float(((a.cpu() - b.cpu()).abs() > tol).float().mean())
+
+    # the card and the CPU round the fp32 geometry differently (FMAs, the
+    # 4x4 LU inverse): a value moves by a few ulps, and where it is
+    # sampled from a steep field (a cloud or a coordinate map at a depth
+    # edge) by a few 1e-5 of its scale; the masks, the decisions, stay
+
+    out = {"phase": "a12", "config": "T&T Horse maps 1920x1056, ref "
+           f"{ref}, sources {srcs[:4]}"}
+    xyd = [static.get_reproj(*(stat_args[dev][i] for i in (0, 2, 3, 4, 5,
+                                                          6)))
+           for dev in ("cuda", "cpu")]
+    card, cpu = (static.consistency_static(*stat_args[dev])
+                 for dev in ("cuda", "cpu"))
+    scale = float(np.abs(views[0][0]).max())
+    xyd_scale = xyd[1][0].abs().amax((0, 1, 2))      # x, y, depth
+    out["static"] = {
+        "reproj_in_range_flips": flips(xyd[0][1], xyd[1][1]),
+        "reproj_share_over_1e-5_scale": share_over(
+            xyd[0][0], xyd[1][0], 1e-5 * xyd_scale),
+        "reproj_max_abs": float((xyd[0][0].cpu() - xyd[1][0]).abs().max()),
+        **{f"{k}_flips": flips(a, b) for k, a, b in zip(
+            ("final", "geo", "photo"), (card[0], card[2], card[3]),
+            (cpu[0], cpu[2], cpu[3]))},
+        "fused_share_over_1e-5_scale": share_over(card[1], cpu[1],
+                                                  1e-5 * scale),
+        "final_share": float(card[0].float().mean())}
+    card, cpu = (legacy.filter_depth(*leg_args[dev])
+                 for dev in ("cuda", "cpu"))
+    pc_scale = float(cpu[0].abs().max())
+    out["legacy"] = {
+        "ref_pc_share_over_1e-5_scale": share_over(card[0], cpu[0],
+                                                   1e-5 * pc_scale),
+        "dist_share_over_1e-4_scale": share_over(card[2], cpu[2],
+                                                 1e-4 * pc_scale),
+        "dist_share_over_1e-5_scale_info": share_over(card[2], cpu[2],
+                                                      1e-5 * pc_scale),
+        "dist_max_abs": float((card[2].cpu() - cpu[2]).abs().max()),
+        "pc_scale": pc_scale}
+    worst = max(v for part in ("static", "legacy") for k, v in
+                out[part].items()
+                if ("flips" in k or "share_over" in k) and "info" not in k)
+    if not worst <= 1e-3:
+        raise AssertionError(f"a12: the card against the CPU: {out}")
+
+    t1 = time.perf_counter()
+    native.library()
+    out["native_build_s"] = time.perf_counter() - t1
+    img = np.random.default_rng(SEED).uniform(0, 1, (1080, 1920, 3)).astype(
+        np.float32)
+    wh = (TANK["W"], TANK["H"])
+    got, want = native.resize(img, wh), _resize_bilinear(img, wh)
+    out["resize_max_abs"] = float(np.abs(got - want).max())
+    if not out["resize_max_abs"] <= 2e-6:
+        raise AssertionError(f"a12: native resize: {out}")
+    for name, fn in (("native", native.resize),
+                     ("numpy", _resize_bilinear)):
+        times = []
+        for _ in range(7):
+            t1 = time.perf_counter()
+            fn(img, wh)
+            times.append(time.perf_counter() - t1)
+        out[f"resize_{name}_ms"] = statistics.median(times) * 1e3
+    out["host_threads"] = os.cpu_count()
+    out["seconds"] = time.perf_counter() - t0
+    log(out)
 
 
 def tank_inplace(torch, root, data):
@@ -1716,40 +1839,99 @@ def distributed_phase(torch, tree, listfile, sd):
     ``parallel/equivalence.py`` with the kernels: a data-parallel
     fine-tune step (4 + 4 of the B=8 batch), a view-sharded one (3 + 3
     sources) and the view-sharded engine on one DTU request (2 + 2
-    sources, fp32), each against this process's single-process result."""
+    sources, fp32), then the depth-sharded step (``depth``: each rank
+    warps 48 of the 96 stage-1 hypotheses and 4 of the 8 of stages 2-3
+    of every view) and the JAX CLI's default ``views,depth`` (3 + 3
+    sources, then 48 + 48 planes of the summed volume), each against this
+    process's single-process result.  Before the spawns, K1 runs on each
+    D-block of the expanded stage-1 sweep (``depth_block_k1``)."""
     from effi_mvs_plus_tpu_torch.data import cams as camio
     from effi_mvs_plus_tpu_torch.models import EffiMVSConfig
+    from effi_mvs_plus_tpu_torch.ops import cuda_warp
     from effi_mvs_plus_tpu_torch.parallel import equivalence as E
+    with torch.inference_mode():
+        blocks = depth_block_k1(torch)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     request = dtu_batch(camio)
     request.pop("filename")
+    torch.cuda.reset_peak_memory_stats()
     ref = E.references(sd, EffiMVSConfig(ndepths=BLEND["ndepths"]),
                        blend_batch(tree, listfile), "cuda", request,
                        EffiMVSConfig())
+    single_peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ref_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as work:
         report = E.spawn(2, ["data", "views", "engine"], ref, work,
                          backend="gloo", device="cuda", timeout=600,
                          threads=4)
-    for name in ("data", "views"):
-        n = report[name]["launches"]
+        depth = E.spawn(2, ["depth", "views_depth"], ref, work,
+                        backend="gloo", device="cuda", timeout=600,
+                        threads=4)
+    for name, r in [*((n, report[n]) for n in ("data", "views")),
+                    *((n, depth[n]) for n in ("depth", "views_depth"))]:
+        n = r["launches"]
         if not (n["k1"] == 3 and n["k2"] == 9 and n["k3"] == 3):
             raise AssertionError(f"distributed {name}: launches {n}")
+        r.pop("grad_rel_l2")
     if report["engine"]["launches"]["k4"] != 8:
         raise AssertionError(f"distributed engine: {report['engine']}")
-    for name in ("data", "views"):
-        report[name].pop("grad_rel_l2")
+    bounds = {"dloss": f"{E.LOSS_RTOL} (1 + |loss|)",
+              "max_dparam": E.PARAM_ATOL, "grad_rel_l2": E.GRAD_REL}
     log({"phase": "distributed", "ranks": 2,
          "route": "gloo on CUDA tensors, both ranks on cuda:0",
          "step_config": "blend_finetune B8 V7 768x576 96/8/8 fp32",
          "engine_config": "dtu B6 V5 1152x864 48/8/8 fp32",
          "single_process_loss": ref["step"][0], **report,
-         "bounds": {"dloss": f"{E.LOSS_RTOL} (1 + |loss|)",
-                    "max_dparam": E.PARAM_ATOL,
-                    "grad_rel_l2": E.GRAD_REL},
-         "reference_seconds": ref_s,
+         "bounds": bounds, "reference_seconds": ref_s,
          "seconds": time.perf_counter() - t0})
+    D1 = BLEND["ndepths"][0]
+    log({"phase": "distributed_depth", "ranks": 2,
+         "route": "gloo on CUDA tensors, both ranks on cuda:0; halos, "
+                  "gathers and BN sums as all_reduces of zero-padded blocks",
+         "step_config": "blend_finetune B8 V7 768x576 96/8/8 fp32",
+         "single_process_loss": ref["step"][0],
+         "single_process_peak_gib": single_peak,
+         "k1_stage1_route": {
+             name: {"hypotheses": d, "window_plan": list(
+                 cuda_warp.window_plan("fwd", CDIM[0], torch.float32, d))}
+             for name, d in (("depth", D1 // 2), ("views_depth", D1))},
+         "k1_depth_blocks": blocks, **depth, "bounds": bounds,
+         "seconds": time.perf_counter() - t0})
+
+
+def depth_block_k1(torch):
+    """K1 on each of two D-blocks of the stage-1 sweep at the fine-tune
+    config (B=8, 6 sources, 72x96, C=32, 96 hypotheses, fp32), each block
+    a slice of the expanded (B,D,h,w) view as the depth layout hands it
+    (an offset, stride 0 on h and w): held against the plain version on
+    the same slice (``check_kernel``) and read against the whole sweep's
+    kernel output there."""
+    from effi_mvs_plus_tpu_torch.core import geometry
+    from effi_mvs_plus_tpu_torch.data import cams as camio
+    from effi_mvs_plus_tpu_torch.ops import cuda_warp
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    proj_ms, dv = rig(BLEND, camio)
+    ref, src, rots, trs, depth = stage_inputs(
+        torch, geometry, BLEND, proj_ms, dv, 0, torch.float32, gen)
+    whole = cuda_warp.warp_correlate_views(ref, src, rots, trs, depth)
+    n = depth.shape[1] // 2
+    out = []
+    for m in range(2):
+        blk = depth[:, m * n:(m + 1) * n]
+        got = cuda_warp.warp_correlate_views(ref, src, rots, trs, blk)
+        err = check_kernel("warp_correlate", f"blend stage1 D-block {m}",
+                           got, cuda_warp._views_torch(ref, src, rots, trs,
+                                                       blk), "float32")
+        out.append({"hypotheses": [m * n, (m + 1) * n],
+                    "depth_strides": list(blk.stride()),
+                    "depth_offset": blk.storage_offset(),
+                    "max_abs_err": err,
+                    "max_abs_diff_whole_sweep": float(
+                        (got - whole[:, :, m * n:(m + 1) * n]).abs().max())})
+    return out
 
 
 def gru_module(sd, stage, hd):

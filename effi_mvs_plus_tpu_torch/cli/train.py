@@ -20,13 +20,16 @@ checkpoint.  Runs on ``--device`` (``cuda`` unless told otherwise).
   ``--batch_size`` is the global batch, each data rank reads its own
   shard of the samples and takes ``batch_size / data`` of them a step,
   and with ``--model_parallel > 1`` the model ranks split the source
-  views (``--shard_policy views``).  Checkpoints and the metrics JSONL
-  are written by rank 0.
+  views, the cost volume's hypotheses or both (``--shard_policy``,
+  ``views,depth`` by default, as the JAX CLI's).  Checkpoints and the
+  metrics JSONL are written by rank 0.
 
 Refused with an error: ``--device_cache`` (``data/device_cache.py`` of the
 JAX package hid a slow host link of the machine it was written for; a
-GPU host has no such link), ``--shard_policy depth`` (ROADMAP A11b) and
-``--shard_policy spatial`` (measured 8x worse; ROADMAP A11).
+GPU host has no such link), ``--shard_policy spatial`` (measured 8x
+worse; ROADMAP A11) and a depth split of ``--ndepths`` over
+``--model_parallel`` into blocks the 3-D U-Net's halos cannot serve
+(``parallel.depth_split_error``).
 
 Usage:
   python -m effi_mvs_plus_tpu_torch.cli.train --mode train \
@@ -39,6 +42,10 @@ Usage:
       --testlist lists/bld/validation_list.txt \
       --loadckpt checkpoints/model_dtu.npz --data_parallel 2 \
       --model_parallel 2
+  torchrun --nproc_per_node 2 -m effi_mvs_plus_tpu_torch.cli.train \
+      --mode finetune --trainpath BLENDEDMVS_ROOT \
+      --loadckpt checkpoints/model_dtu.npz --model_parallel 2 \
+      --shard_policy depth
 """
 
 from __future__ import annotations
@@ -105,11 +112,14 @@ def build_parser(profile_name="dtu_train"):
                         "--model_parallel)")
     p.add_argument("--model_parallel", type=int, default=1,
                    help="ranks on the model axis, which split the source "
-                        "views")
-    p.add_argument("--shard_policy", default="views",
-                   help="model-axis layout: views (FPN, per-view warps and "
-                        "PixelwiseNet sharded, the view sums all-reduced); "
-                        "depth and spatial are refused")
+                        "views and/or the cost volume's hypotheses")
+    p.add_argument("--shard_policy", default="views,depth",
+                   help="comma list of model-axis layouts: views (FPN, "
+                        "per-view warps and PixelwiseNet sharded, the view "
+                        "sums all-reduced), depth (each rank a block of "
+                        "every stage's hypotheses through the 3-D U-Net "
+                        "and the CSP blocks, with halos along D); spatial "
+                        "is refused")
     profile = get_profile(profile_name)
     apply_profile_defaults(p, profile)
     if len(profile.lists) == 2:   # the repo's scan lists: train, then eval
@@ -122,13 +132,22 @@ def build_parser(profile_name="dtu_train"):
 
 def _refuse_unported(args):
     """Refuse what stays unported, with the reason, before any work."""
-    from effi_mvs_plus_tpu_torch.parallel import layout_kinds
+    from effi_mvs_plus_tpu_torch.models.effi_mvs import stage_depth_multiple
+    from effi_mvs_plus_tpu_torch.parallel import (depth_split_error,
+                                                  layout_kinds)
     if args.device_cache:
         raise SystemExit(NO_DEVICE_CACHE)
     try:
-        layout_kinds(args.shard_policy)
+        kinds = layout_kinds(args.shard_policy)
     except ValueError as e:
         raise SystemExit(f"--shard_policy {args.shard_policy}: {e}")
+    if "depth" in kinds and args.model_parallel > 1:
+        for s, D in enumerate(int(x) for x in args.ndepths.split(",")):
+            why = depth_split_error(D, args.model_parallel,
+                                    stage_depth_multiple(s))
+            if why:
+                raise SystemExit(f"--shard_policy {args.shard_policy}, "
+                                 f"stage {s + 1}: {why}")
 
 
 def make_policy(args):
@@ -143,7 +162,8 @@ def make_policy(args):
                          f"needs {dp * mp} processes; {world} are running")
     if world == 1:
         return None
-    return parallel.ShardingPolicy(parallel.global_mesh(model=mp))
+    return parallel.make_policy(parallel.global_mesh(model=mp),
+                                args.shard_policy)
 
 
 def shard_indices(n, policy):

@@ -6,6 +6,10 @@ block is an ``nn.Module`` whose parameter names are the reference
 state-dict names, so the shipped checkpoints load strictly.  Tensors are
 channels-last, as in the JAX package.  ``train()`` switches BN to batch
 statistics and turns on the update block's two channel dropouts (p=0.1).
+``CostRegNet`` and ``CSPBlock`` run inside ``parallel.depth_blocks``:
+under a depth policy their inputs are this rank's D-block of the volume
+and their 3-D layers exchange halos along D; without one nothing
+changes.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from torch import nn as tnn
 
 from effi_mvs_plus_tpu_torch import nn
 from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru
+from effi_mvs_plus_tpu_torch.parallel import mesh as par
 
 
 def _upsample_nearest2x(x):
@@ -139,7 +144,10 @@ class PixelwiseNet(tnn.ModuleList):
 
 class CostRegNet(tnn.Module):
     """3-level 3-D U-Net.  x: (B,D,H,W,G) -> (prob_pre (B,D,H,W),
-    pro (B,D,H,W,8)).  D, H, W must be divisible by 4."""
+    pro (B,D,H,W,8)).  D, H, W must be divisible by 4, and so must a
+    D-block (``DEPTH_MULTIPLE``): two stride-2 layers halve D."""
+
+    DEPTH_MULTIPLE = 4
 
     def __init__(self, G=1):
         super().__init__()
@@ -154,12 +162,13 @@ class CostRegNet(tnn.Module):
         self.prob = nn.Conv(3, 8, 1, 3, padding=1, bias=False)
 
     def forward(self, x):
-        conv1 = self.conv1(self.conv0(x))
-        conv3 = self.conv3(self.conv2(conv1))
-        mid = self.conv5(self.conv4(conv3))
-        up = conv3 + self.conv6(mid)
-        pro = conv1 + self.conv7(up)
-        return self.prob(pro)[..., 0], pro
+        with par.depth_blocks():
+            conv1 = self.conv1(self.conv0(x))
+            conv3 = self.conv3(self.conv2(conv1))
+            mid = self.conv5(self.conv4(conv3))
+            up = conv3 + self.conv6(mid)
+            pro = conv1 + self.conv7(up)
+            return self.prob(pro)[..., 0], pro
 
 
 class CSPBlock(tnn.Module):
@@ -176,10 +185,11 @@ class CSPBlock(tnn.Module):
                                   output_padding=(0, 1, 1))
 
     def forward(self, cur_volume, prev_volume):
-        down = self.conv0(cur_volume)
-        emb = self.conv_cost(prev_volume)
-        fused = self.conv1(torch.cat([down, emb], dim=-1))
-        return self.conv2(fused)[..., 0]
+        with par.depth_blocks():
+            down = self.conv0(cur_volume)
+            emb = self.conv_cost(prev_volume)
+            fused = self.conv1(torch.cat([down, emb], dim=-1))
+            return self.conv2(fused)[..., 0]
 
 
 class ProjectionInput(tnn.Module):

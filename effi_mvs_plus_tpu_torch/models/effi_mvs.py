@@ -38,7 +38,13 @@ reference does — the stage-1 entropy input, the current depth of stages
 Under a view-sharding policy (``parallel/mesh.py``) each model rank runs
 the FPN on the reference and its block of source views, the warps and
 ``PixelwiseNet`` on that block, and all-reduces the view-weighted sums
-``sim_sum`` and ``w_sum``; the rest runs replicated.  Without a policy
+``sim_sum`` and ``w_sum``.  Under a depth-sharding policy each model rank
+holds a block of every stage's hypotheses (``par.depth_slices``): alone,
+it warps that block of every view (the stage-1 entropy takes its max and
+sums over D from the group); with views, it keeps its block of the
+summed volume.  ``CostRegNet`` and the CSP blocks run on the block, and
+their outputs, with the stage-1 similarity, are gathered along D
+(``par.gather_depths``).  The rest runs replicated.  Without a policy
 the hooks are identities.
 """
 
@@ -50,7 +56,6 @@ from typing import Tuple
 import torch
 from torch import nn as tnn
 
-from effi_mvs_plus_tpu_torch import nn
 from effi_mvs_plus_tpu_torch.core import geometry
 from effi_mvs_plus_tpu_torch.models import blocks
 from effi_mvs_plus_tpu_torch.ops import (
@@ -93,6 +98,25 @@ def _relative_projections(P):
     mapping ref rays to src pixels: (B, V-1, 3, 3), (B, V-1, 3)."""
     Pv = P[:, 1:]
     return geometry.relative_projection(Pv, P[:, 0:1].expand_as(Pv))
+
+
+def stage_depth_multiple(s):
+    """The multiple of planes a D-block of stage s (0-based) must hold:
+    stage 1's volume passes CostRegNet's two stride-2 layers along D, the
+    later stages' only the CSP blocks' stride-1 ones."""
+    return blocks.CostRegNet.DEPTH_MULTIPLE if s == 0 else 1
+
+
+def _sweep_entropy(sims):
+    """Entropy over D of each view's softmax-normalised correlations,
+    detached: (B,V,D,h,w) -> (B,V,h,w).  ``nn.softmax``'s steps, with the
+    max and the sums over D taken over the model group where this rank
+    warps a block of the hypotheses (``par.sweep_max``/``sweep_sum``).
+    In bf16 mode it runs on the bf16 correlations."""
+    x = sims.detach()
+    u = torch.exp(x - par.sweep_max(x.amax(2, keepdim=True)))
+    pnorm = u / par.sweep_sum(u.float().sum(2, keepdim=True)).to(x.dtype)
+    return -par.sweep_sum(torch.sum(pnorm * torch.log(pnorm + 1e-7), dim=2))
 
 
 class EffiMVS(tnn.Module):
@@ -192,6 +216,10 @@ class EffiMVS(tnn.Module):
             interval_s = depth_interval * cfg.depth_intervals_ratio[s]
             rots, trs = _relative_projections(P)
 
+            # the hypotheses this rank warps, and its block of them kept
+            # after the view sums (all of them without depth sharding)
+            pre, post = par.depth_slices(cfg.ndepths[s],
+                                         stage_depth_multiple(s))
             if s == 0:
                 # ----- initial full sweep -----
                 # the per-batch sweep stays an expanded (B,D,h,w) view
@@ -199,10 +227,9 @@ class EffiMVS(tnn.Module):
                     depth_values, cfg.ndepths[0], 1, 1)
                 depth_hyps = (1.0 / drs).expand(B, cfg.ndepths[0], h, w)
                 sims = cuda_warp.warp_correlate_views(
-                    ref_fea, f[:, 1:], rots, trs, depth_hyps)  # (B,Vo-1,D,h,w)
-                # in bf16 mode the entropy runs on the bf16 correlations
-                pnorm = nn.softmax(sims.detach(), dim=2)
-                entropy = -torch.sum(pnorm * torch.log(pnorm + 1e-7), dim=2)
+                    ref_fea, f[:, 1:], rots, trs,
+                    depth_hyps[:, pre])                      # (B,Vo-1,D,h,w)
+                entropy = _sweep_entropy(sims)
                 with par.view_stats(V - 1, has_ref=False):
                     vw = self.PixelwiseNet(
                         entropy.reshape(B * (Vo - 1), h, w, 1).to(dt),
@@ -212,17 +239,17 @@ class EffiMVS(tnn.Module):
                 sim_sum, w_sum = par.sum_views(
                     torch.sum(sims * vw_, dim=1),            # (B,D,h,w)
                     torch.sum(vw_, dim=1))                   # (B,1,h,w)
-                similarity = (sim_sum / (w_sum + 1e-6))[..., None]
+                similarity = (sim_sum / (w_sum + 1e-6))[:, post][..., None]
 
                 prob_pre, _ = self.cost_regularization(similarity.to(dt))
-                prob = torch.softmax(prob_pre.float(), dim=1)
+                reg_volume, cur_volume = par.gather_depths(
+                    prob_pre.float(), similarity[..., 0].float())
+                prob = torch.softmax(reg_volume, dim=1)
                 init_depth = depth_regression(prob, depth_hyps)
                 conf = photometric_confidence(prob)
                 photometric_confidence_map = _repeat2x_hw(
                     _repeat2x_hw(conf, 1, 2), 1, 2)          # x4 nearest
 
-                reg_volume = prob_pre.float()
-                cur_volume = similarity[..., 0].float()
                 vol_dmin = _bshape(depth_min_g, 4)
                 vol_dmax = _bshape(depth_max_g, 4)
                 cur_depth = init_depth                       # (B,h,w)
@@ -236,18 +263,19 @@ class EffiMVS(tnn.Module):
                 depth_samples = 1.0 / drs_disp               # (B,8,h,w)
 
                 sims = cuda_warp.warp_correlate_views(
-                    ref_fea, f[:, 1:], rots, trs, depth_samples)
+                    ref_fea, f[:, 1:], rots, trs, depth_samples[:, pre])
                 vw_ = view_weights[:, :, None]
                 sim_sum, w_sum = par.sum_views(torch.sum(sims * vw_, dim=1),
                                                torch.sum(vw_, dim=1))
-                fresh = (sim_sum / (w_sum + 1e-6))[..., None]  # (B,8,h,w,1)
+                # (B,8,h,w,1), or this rank's D-block of it
+                fresh = (sim_sum / (w_sum + 1e-6))[:, post][..., None]
 
                 new_dmax = depth_samples[:, 0:1]             # (B,1,h,w)
                 new_dmin = depth_samples[:, -1:]
 
                 # cross-scale propagation: previous-stage volumes resampled
                 # at the new hypotheses (nearest-downsampled x2), fused in
-                ds_low = depth_samples[:, :, ::2, ::2]
+                ds_low = depth_samples[:, pre][:, post, ::2, ::2]
                 reg_low = resample_volume_at_depths(
                     reg_volume, ds_low, vol_dmin, vol_dmax)
                 reg_volume = getattr(self, f"CSP_R{s}")(
@@ -256,6 +284,8 @@ class EffiMVS(tnn.Module):
                     cur_volume, ds_low, vol_dmin, vol_dmax)
                 cur_volume = getattr(self, f"CSP_C{s}")(
                     fresh.to(dt), cur_low[..., None].to(dt)).float()
+                reg_volume, cur_volume = par.gather_depths(reg_volume,
+                                                           cur_volume)
                 vol_dmin, vol_dmax = new_dmin, new_dmax
 
             # ----- ConvGRU refinement over the stored volumes -----

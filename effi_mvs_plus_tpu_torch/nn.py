@@ -25,7 +25,13 @@ shipped state dict.
   (``parallel/mesh.py``) the sums and sums of squares are all-reduced
   over the data group first, so the statistics are the global batch's;
   inside ``parallel.view_stats`` the running update gathers every view's
-  statistics from the model group.
+  statistics from the model group; inside ``parallel.depth_blocks``
+  under a depth policy they are all-reduced over the model group too,
+  whose ranks hold the other D-blocks of the volume.
+* 3-D ``Conv`` inside ``parallel.depth_blocks`` under a depth policy —
+  the input is this rank's D-block of a volume; the convolution runs on
+  it with the halo planes of the neighbouring ranks in place of its
+  D-padding (``_conv_on_depth_block``).
 * ``softmax`` — op by op as XLA computes ``jax.nn.softmax``, each step
   rounded to the input's dtype, where ``torch.softmax`` rounds once at
   the end.  ``sigmoid`` — the same in bf16; ``torch.sigmoid`` in fp32,
@@ -131,10 +137,13 @@ def batch_norm(x, bn, groups=1):
     xg = x.reshape(x.shape[0] // g, g, *x.shape[1:])
     xf = xg.to(torch.promote_types(xg.dtype, torch.float32))  # >= fp32
     axes = (0,) + tuple(range(2, xg.dim() - 1))
-    # sums over this rank's rows, then over the data group's (the
-    # identity without a data-parallel policy): the global batch's
-    n = xg.numel() // (g * xg.shape[-1]) * par.data_parallel()
-    sums = par.reduce_data(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]))
+    # sums over this rank's rows, then over the data group's, then, on a
+    # D-block, over the model group's (identities without a policy): the
+    # global batch's whole volume
+    n = (xg.numel() // (g * xg.shape[-1]) * par.data_parallel()
+         * par.depth_parts())
+    sums = par.reduce_depth(par.reduce_data(
+        torch.stack([xf.sum(axes), (xf * xf).sum(axes)])))
     mean = sums[0] / n                                     # (g, C)
     var = sums[1] / n - mean * mean
     _update_running(bn, mean.detach(), var.detach() * (n / max(n - 1, 1)))
@@ -169,11 +178,52 @@ class Conv(nn.Module):
             nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x):
+        if self.nd == 3 and par.depth_parts() > 1:
+            return _conv_on_depth_block(self, x)
         if self.transpose:
             return conv_transpose3d(x, self.weight, self.bias, self.stride,
                                     self.padding, self.output_padding)
         fn = conv2d if self.nd == 2 else conv3d
         return fn(x, self.weight, self.bias, self.stride, self.padding)
+
+
+def _triple(v):
+    return (v,) * 3 if isinstance(v, int) else tuple(v)
+
+
+def _conv_on_depth_block(conv, x):
+    """The 3-D ``conv`` on this rank's D-block x (B, Dl, H, W, C) of a
+    volume whose other blocks the model group's ranks hold, in order.
+    The block gains the planes the kernel reaches past its edges from the
+    neighbouring blocks (``parallel.depth_halo``, zeros past the volume's
+    ends, where the whole volume has its zero padding), the convolution
+    runs on it without D-padding, and the result is cropped to this
+    rank's block of the output: Dl/s planes for a stride-s convolution,
+    s·Dl for its transpose, so that the blocks of every level of the
+    U-Net line up.  A stride-2 layer's block must start on an even plane
+    (Dl even); its transpose needs one plane from the right neighbour
+    only, a stride-1 layer one from each side."""
+    k = conv.weight.shape[2]
+    (s, sh, sw), (p, ph, pw) = _triple(conv.stride), _triple(conv.padding)
+    op, oph, opw = _triple(conv.output_padding)
+    Dl = x.shape[1]
+    if 2 * p != k - 1 or (op != s - 1 if conv.transpose else Dl % s):
+        raise ValueError(
+            f"a 3-D {'transpose ' if conv.transpose else ''}convolution "
+            f"(k {k}, stride {s}, padding {p}, output padding {op} along D) "
+            f"does not map a block of {Dl} planes onto a block")
+    if conv.transpose:
+        lo, hi = (k - 1 - p) // s, (p - 1) // s + 1
+        start, n = p + lo * s, Dl * s
+        y = conv_transpose3d(par.depth_halo(x, lo, hi), conv.weight,
+                             conv.bias, (s, sh, sw), (0, ph, pw),
+                             (0, oph, opw))
+    else:
+        lo, hi = p, k - s - p
+        start, n = 0, Dl // s
+        y = conv3d(par.depth_halo(x, lo, hi), conv.weight, conv.bias,
+                   (s, sh, sw), (0, ph, pw))
+    return y[:, start:start + n]
 
 
 class BatchNorm(nn.Module):

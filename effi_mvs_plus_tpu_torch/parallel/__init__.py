@@ -1,5 +1,6 @@
 from effi_mvs_plus_tpu_torch.parallel.mesh import (  # noqa: F401
-    Mesh, ShardingPolicy, layout_kinds, make_mesh, use_policy, view_blocks,
+    Mesh, ShardingPolicy, depth_split_error, layout_kinds, make_mesh,
+    make_policy, use_policy, view_blocks,
 )
 from effi_mvs_plus_tpu_torch.parallel.distributed import (  # noqa: F401
     barrier, global_mesh, initialize, is_main, mean_metrics, partition,

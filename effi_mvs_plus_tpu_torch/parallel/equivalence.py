@@ -16,6 +16,10 @@ engine's maps must equal the unsharded engine's within the fp32 map
 tolerance: max depth error under 0.5% of the map's range plus 0.5 mm,
 confidence within 5e-3.
 
+The layouts (``LAYOUTS``) are the data axis, the source views and the
+cost volume's hypotheses over the model axis (``depth``, and
+``views_depth``, the JAX CLI's default), and their combinations.
+
 ``spawn`` runs the layouts in ``world`` processes (``torch.multiprocessing``
 with the spawn start method, rendezvous on ``tcp://localhost``), each
 rank on ``rank_device(device)`` (cuda unless told otherwise); the CPU
@@ -38,7 +42,12 @@ from effi_mvs_plus_tpu_torch.data import cams as camio
 LOSS_RTOL = 1e-4
 PARAM_ATOL = 2.5e-3
 GRAD_REL = 5e-2
-LAYOUTS = {"data": (2, 1), "views": (1, 2), "data_views": (2, 2)}
+# name: (data ranks, model ranks, model-axis layouts)
+LAYOUTS = {"data": (2, 1, "views"), "views": (1, 2, "views"),
+           "data_views": (2, 2, "views"), "depth": (1, 2, "depth"),
+           "views_depth": (1, 2, "views,depth"),
+           "data_views_depth": (2, 2, "views,depth"),
+           "depth4": (1, 4, "depth")}
 
 
 def rig(B, V, H, W):
@@ -177,6 +186,17 @@ def free_port():
     return port
 
 
+def _each_rank(value, world):
+    """Every rank's ``value``, in rank order, on every rank (an all_reduce
+    of zero-padded slots)."""
+    from effi_mvs_plus_tpu_torch import parallel
+    slots = torch.zeros(world, dtype=torch.float64,
+                        device=parallel.distributed.comm_device())
+    slots[parallel.rank()] = value
+    torch.distributed.all_reduce(slots)
+    return slots.tolist()
+
+
 def _rank_main(rank, world, port, backend, device, job):
     """One process of ``spawn``: ``job["setup"]`` (if any), then the
     layouts of ``job`` in turn, each read against the references in
@@ -202,6 +222,8 @@ def _rank_main(rank, world, port, backend, device, job):
     report = {"world": world, "backend": torch.distributed.get_backend(),
               "device": str(dev)}
     for name in job["layouts"]:
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         n0 = launches()
         if name == "engine":
@@ -209,13 +231,17 @@ def _rank_main(rank, world, port, backend, device, job):
                               shard_views=True)
             report[name] = map_deltas(ref["maps"], got)
         else:
-            pol = parallel.ShardingPolicy(parallel.make_mesh(*LAYOUTS[name]))
+            data, model, kinds = LAYOUTS[name]
+            pol = parallel.make_policy(parallel.make_mesh(data, model), kinds)
             report[name] = step_deltas(ref["step"],
                                        train_step(state, cfg, batch, dev,
                                                   pol))
         report[name]["seconds"] = time.perf_counter() - t0
         report[name]["launches"] = {k: v - n0[k]
                                     for k, v in launches().items()}
+        if dev.type == "cuda":
+            report[name]["peak_gib"] = _each_rank(
+                torch.cuda.max_memory_allocated(dev) / 2 ** 30, world)
         parallel.barrier()
     # rank 0 alone writes, as the CLIs' checkpoints
     if parallel.is_main():

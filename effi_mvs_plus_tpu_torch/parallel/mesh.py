@@ -1,4 +1,5 @@
-"""Data and source-view parallelism over a (data, model) grid of ranks.
+"""Data, source-view and depth parallelism over a (data, model) grid of
+ranks.
 
 The port of ``effi_mvs_plus_tpu/parallel/mesh.py``.  Rank ``r`` sits at
 (data ``r // model``, model ``r % model``), and each axis has its own
@@ -10,18 +11,36 @@ process group.
   its masked sums, the dropout masks are drawn for the global batch and
   each rank keeps its rows (``dropout_rows``), and the gradients are
   averaged over the group before the optimizer (``sync_gradients``).
-* ``model`` — each model rank runs the FPN and the
+* ``model``, layout ``views`` — each model rank runs the FPN and the
   per-view warps and ``PixelwiseNet`` on its contiguous block of the
   source views (``local_source_views``; every rank also runs the
   reference view), and the view-weighted sums are all-reduced over the
   group (``sum_views``).  Per-view BN statistics stay with the views a
   rank holds; the running statistics gather every view's, in order
-  (``gather_view_stats``).  The rest of the network runs replicated.
+  (``gather_view_stats``).
+* ``model``, layout ``depth`` — each model rank holds a contiguous block
+  of the cost volume's hypotheses (``depth_block``): alone, it warps and
+  correlates that block of every view (the stage-1 entropy over D takes
+  its max and sums from the group, ``sweep_max`` / ``sweep_sum``); with
+  ``views`` (the JAX CLI's default ``views,depth``), it keeps its block
+  of the view sums (``depth_slices``).  The 3-D U-Net and the CSP blocks
+  run on the block (``depth_blocks``): each 3-D convolution takes the
+  planes its kernel reaches past the block's edges from the neighbouring
+  ranks (``depth_halo``), and train-mode BN sums over the group as well.
+  The regularised volumes are gathered along D (``gather_depths``) and
+  the rest of the network runs replicated.
+
+GSPMD inserts these collectives for the JAX package.  The port writes
+them out, each as an all_reduce of zero-padded blocks (exact, and the one
+collective that both backends take on either device: gloo gathers no
+CUDA tensors).  Unlike GSPMD, which pads an uneven split, the port
+refuses a split of D into blocks the halos cannot serve
+(``depth_split_error``).
 
 The model calls the module-level hooks, which do nothing unless a
 ``ShardingPolicy`` is active (``use_policy``), so a single process pays
-nothing.  The JAX package's ``depth`` and ``spatial`` layouts are refused
-(``layout_kinds``; ROADMAP A11b and A11).
+nothing.  The JAX package's ``spatial`` layout is refused
+(``layout_kinds``; ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -35,9 +54,13 @@ import torch.distributed as dist
 
 from effi_mvs_plus_tpu_torch.parallel import distributed as D
 
-# the modules that run on a rank's own source views; the rest of the
-# network runs replicated on every model rank
+# the modules whose gradient flows only through a rank's own source views
+# (layout views) or its own block of hypotheses (layout depth, with or
+# without views); the rest of the network runs replicated on every model
+# rank
 VIEW_SHARDED = ("feature", "PixelwiseNet")
+DEPTH_SHARDED = VIEW_SHARDED + ("cost_regularization", "CSP_R1", "CSP_R2",
+                                "CSP_C1", "CSP_C2")
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -56,6 +79,45 @@ class _AllReduceSum(torch.autograd.Function):
         g = g.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(g, group=ctx.group)
         return g, None
+
+
+class _DepthHalo(torch.autograd.Function):
+    """A D-block (B, Dl, ...) -> (B, lo + Dl + hi, ...): the last ``lo``
+    planes of the left neighbour's block, the block, the first ``hi``
+    planes of the right neighbour's, zeros past the volume's ends.  Every
+    rank puts its edge planes in its slot of a zero buffer and one
+    all_reduce hands each rank every slot.  The backward returns each
+    halo's gradient to the rank that owns those planes, the same way."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi, group, rank, size):
+        ctx.lo, ctx.hi, ctx.group = lo, hi, group
+        ctx.rank, ctx.size = rank, size
+        B, Dl, rest = x.shape[0], x.shape[1], x.shape[2:]
+        slots = x.new_zeros((size, B, lo + hi) + rest)
+        slots[rank, :, :lo] = x[:, Dl - lo:]
+        slots[rank, :, lo:] = x[:, :hi]
+        dist.all_reduce(slots, group=group)
+        left = (slots[rank - 1, :, :lo] if rank > 0
+                else x.new_zeros((B, lo) + rest))
+        right = (slots[rank + 1, :, lo:] if rank < size - 1
+                 else x.new_zeros((B, hi) + rest))
+        return torch.cat([left, x, right], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo, hi, rank, size = ctx.lo, ctx.hi, ctx.rank, ctx.size
+        B, Dl, rest = g.shape[0], g.shape[1] - lo - hi, g.shape[2:]
+        gx = g[:, lo:lo + Dl].clone(memory_format=torch.contiguous_format)
+        slots = g.new_zeros((size, B, lo + hi) + rest)
+        if rank > 0:
+            slots[rank - 1, :, :lo] = g[:, :lo]
+        if rank < size - 1:
+            slots[rank + 1, :, lo:] = g[:, lo + Dl:]
+        dist.all_reduce(slots, group=ctx.group)
+        gx[:, Dl - lo:] += slots[rank, :, :lo]
+        gx[:, :hi] += slots[rank, :, lo:]
+        return gx, None, None, None, None, None
 
 
 class Mesh:
@@ -103,41 +165,69 @@ def view_blocks(n_src, parts):
     return list(zip(starts[:-1], starts[1:]))
 
 
-# the JAX package's other model-axis layouts, and why the port has none
+# the JAX package's model-axis layouts the port has, and the one it
+# refuses, with why
+PORTED_LAYOUTS = ("views", "depth")
 REFUSED_LAYOUTS = {
-    "depth": "depth sharding of the cost volume is not ported: it needs "
-             "halo exchanges along D through the 3-D U-Net, which GSPMD "
-             "inserted for the JAX package (ROADMAP A11b); use views",
     "spatial": "spatial (image-row) sharding is not ported: it was "
                "measured 8x worse per device than unsharded "
-               "(SHARDING_TANK_r02.json; ROADMAP A11); use views",
+               "(SHARDING_TANK_r02.json; ROADMAP A11); use views or depth",
 }
 
 
 def layout_kinds(spec):
-    """The model-axis layouts of a comma list such as ``"views"``;
+    """The model-axis layouts of a comma list such as ``"views,depth"``;
     raises ValueError, with the reason, for one the port refuses and for
     an empty list (a model axis that shards nothing would only repeat
     the work on every rank)."""
     kinds = {k.strip() for k in spec.split(",") if k.strip()}
     if not kinds:
-        raise ValueError("no model-axis layout given; the port has views")
+        raise ValueError("no model-axis layout given; the port has "
+                         "views and depth")
     for k in sorted(kinds):
         if k in REFUSED_LAYOUTS:
             raise ValueError(REFUSED_LAYOUTS[k])
-        if k != "views":
-            raise ValueError(f"unknown layout {k!r}; the port has views")
+        if k not in PORTED_LAYOUTS:
+            raise ValueError(f"unknown layout {k!r}; the port has views "
+                             f"and depth")
     return kinds
+
+
+def depth_split_error(D, parts, multiple=1):
+    """Why ``D`` hypotheses cannot be split into ``parts`` blocks that
+    each run the 3-D layers on their own planes, or None.  A block must
+    be a whole number of planes, and a multiple of ``multiple`` where the
+    layers halve D (2 for each stride-2 level along D), so that every
+    level's blocks start on the planes the strides sample."""
+    if D % parts == 0 and (D // parts) % multiple == 0:
+        return None
+    what = ("evenly" if multiple == 1 else
+            f"into blocks of a multiple of {multiple} planes (the 3-D "
+            f"U-Net halves D {multiple.bit_length() - 1} times)")
+    return (f"{D} hypotheses do not split over {parts} model ranks "
+            f"{what}; GSPMD pads such a split, the port refuses it: fit "
+            f"--model_parallel or --ndepths, or use --shard_policy views")
+
+
+def make_policy(mesh, spec):
+    """The ``ShardingPolicy`` of a comma list of layouts (``layout_kinds``)
+    on ``mesh``, as the JAX CLI builds it."""
+    kinds = layout_kinds(spec)
+    return ShardingPolicy(mesh, shard_views="views" in kinds,
+                          shard_depth="depth" in kinds)
 
 
 class ShardingPolicy:
     """The layouts the model hooks apply on a mesh: the batch over the
-    data axis, the source views over the model axis (``shard_views``,
-    the one model-axis layout the port has)."""
+    data axis; over the model axis the source views (``shard_views``),
+    the cost volume's hypotheses (``shard_depth``) or both.  A mesh of
+    one model rank shards neither."""
 
-    def __init__(self, mesh: Mesh):
+    def __init__(self, mesh: Mesh, shard_views: bool = True,
+                 shard_depth: bool = False):
         self.mesh = mesh
-        self.shard_views = mesh.model > 1
+        self.shard_views = shard_views and mesh.model > 1
+        self.shard_depth = shard_depth and mesh.model > 1
 
     # ---- data axis
     def reduce_data(self, x):
@@ -184,15 +274,64 @@ class ShardingPolicy:
         dist.all_reduce(out, group=self.mesh.model_group)
         return torch.split(out, sizes, -1)
 
+    def depth_block(self, D, multiple=1):
+        """This rank's [start, stop) of D hypotheses ((0, D) without depth
+        sharding); raises ValueError for a split the halos cannot serve
+        (``depth_split_error``)."""
+        if not self.shard_depth:
+            return 0, D
+        why = depth_split_error(D, self.mesh.model, multiple)
+        if why:
+            raise ValueError(why)
+        n = D // self.mesh.model
+        return n * self.mesh.model_rank, n * (self.mesh.model_rank + 1)
+
+    def depth_slices(self, D, multiple=1):
+        """(pre, post): the hypotheses this rank warps, and its block of
+        what it warped, kept after the view sums.  Depth alone: this
+        rank's block, then all of it; with views: all D of its own views,
+        then its block of the summed volume."""
+        start, stop = self.depth_block(D, multiple)
+        block = slice(start, stop)
+        if self.shard_depth and not self.shard_views:
+            return block, slice(None)
+        return slice(None), block
+
+    def sweep_reduce(self, x, op):
+        """x reduced over the model group where this rank warps a block
+        of the hypotheses (depth without views), detached; x as it is
+        elsewhere."""
+        if not (self.shard_depth and not self.shard_views):
+            return x
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=op, group=self.mesh.model_group)
+        return y
+
+    def gather_depths(self, xs):
+        """Each D-block (B, Dl, ...) of xs -> the whole volume (B, D, ...),
+        the same on every model rank, in one differentiable all_reduce of
+        zero-padded blocks (the tensors share shape and dtype); its
+        backward sums the gradients over the group, as ``sum_views``'s
+        does."""
+        if not self.shard_depth:
+            return xs
+        x = torch.stack(xs, -1)
+        B, Dl, rest = x.shape[0], x.shape[1], x.shape[2:]
+        m, M = self.mesh.model_rank, self.mesh.model
+        full = torch.cat([x.new_zeros((B, Dl * m) + rest), x,
+                          x.new_zeros((B, Dl * (M - 1 - m)) + rest)], 1)
+        return torch.unbind(_AllReduceSum.apply(full, self.mesh.model_group),
+                            -1)
+
     def sync_gradients(self, model):
         """Average the gradients over the data group, and those of the
-        view-sharded modules over the model group, one flat bucket each.
+        model-sharded modules over the model group, one flat bucket each.
         Within a group every rank computes the same loss (the data group
-        all-reduces the loss's sums, the model group the view sums), so
-        the backward of those all_reduces sums the ranks' equal gradients:
-        a rank's gradient is the group's size times its own share, and
-        the mean over the group is the sum of the shares.  The replicated
-        rest of a view-sharded step holds the whole gradient on every
+        all-reduces the loss's sums, the model group the view sums or the
+        D-blocks), so the backward of those all_reduces sums the ranks'
+        equal gradients: a rank's gradient is the group's size times its
+        own share, and the mean over the group is the sum of the shares.
+        The replicated rest of the step holds the whole gradient on every
         model rank already."""
         params = [p for p in model.parameters() if p.requires_grad]
         for p in params:
@@ -201,8 +340,9 @@ class ShardingPolicy:
         if self.mesh.data > 1:
             _mean_bucket([p.grad for p in params], self.mesh.data_group,
                          self.mesh.data)
-        if self.shard_views:
-            sharded = [p.grad for name in VIEW_SHARDED
+        if self.shard_views or self.shard_depth:
+            names = DEPTH_SHARDED if self.shard_depth else VIEW_SHARDED
+            sharded = [p.grad for name in names
                        for p in getattr(model, name).parameters()]
             _mean_bucket(sharded, self.mesh.model_group, self.mesh.model)
 
@@ -232,6 +372,20 @@ def use_policy(policy: Optional[ShardingPolicy]):
         yield
     finally:
         _tls.policy = prev
+
+
+@contextlib.contextmanager
+def depth_blocks():
+    """Marks a module that runs on this rank's D-block of a volume
+    (``CostRegNet``, ``CSPBlock``): under a depth policy its 3-D
+    convolutions take their halos from the neighbouring ranks
+    (``nn.Conv``) and its train-mode BN sums over the model group."""
+    prev = getattr(_tls, "depth", False)
+    _tls.depth = True
+    try:
+        yield
+    finally:
+        _tls.depth = prev
 
 
 @contextlib.contextmanager
@@ -283,3 +437,62 @@ def gather_view_stats(*xs):
     if pol is None or views is None:
         return xs
     return pol.gather_view_stats(xs, *views)
+
+
+def _blocked() -> Optional[ShardingPolicy]:
+    """The active policy inside ``depth_blocks`` under depth sharding."""
+    pol = _active()
+    if pol is None or not pol.shard_depth or not getattr(_tls, "depth",
+                                                         False):
+        return None
+    return pol
+
+
+def depth_parts() -> int:
+    """The model ranks that share a volume's D inside ``depth_blocks`` (1
+    elsewhere)."""
+    pol = _blocked()
+    return 1 if pol is None else pol.mesh.model
+
+
+def reduce_depth(x):
+    """Inside ``depth_blocks``: x summed over the model group,
+    differentiable."""
+    pol = _blocked()
+    return x if pol is None else _AllReduceSum.apply(x, pol.mesh.model_group)
+
+
+def depth_halo(x, lo, hi):
+    """Inside ``depth_blocks``: the D-block x with ``lo`` planes of its
+    left neighbour's and ``hi`` of its right neighbour's (zeros past the
+    volume's ends), differentiable (``_DepthHalo``)."""
+    m = _blocked().mesh
+    return _DepthHalo.apply(x, lo, hi, m.model_group, m.model_rank, m.model)
+
+
+def depth_slices(D, multiple=1):
+    """``ShardingPolicy.depth_slices``; all of D without a policy."""
+    pol = _active()
+    if pol is None:
+        return slice(None), slice(None)
+    return pol.depth_slices(D, multiple)
+
+
+def sweep_max(x):
+    """x's max over the model group where this rank warps a block of the
+    hypotheses, detached; x elsewhere."""
+    pol = _active()
+    return x if pol is None else pol.sweep_reduce(x, dist.ReduceOp.MAX)
+
+
+def sweep_sum(x):
+    """x's sum over the model group where this rank warps a block of the
+    hypotheses, detached; x elsewhere."""
+    pol = _active()
+    return x if pol is None else pol.sweep_reduce(x, dist.ReduceOp.SUM)
+
+
+def gather_depths(*xs):
+    """The whole volumes of D-blocks; xs without depth sharding."""
+    pol = _active()
+    return xs if pol is None else pol.gather_depths(xs)

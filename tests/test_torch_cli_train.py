@@ -182,9 +182,9 @@ def test_train_cli_loadckpt(tree, tmp_path, monkeypatch):
 
 
 # what stays refused, and why: fine-tuning needs weights to start from;
-# the device cache served a slow host link the card does not have; depth
-# and spatial sharding are ROADMAP A11b and A11; a grid needs as many
-# processes as it has ranks
+# the device cache served a slow host link the card does not have;
+# spatial sharding, alone or beside depth, is refused (ROADMAP A11); a
+# grid needs as many processes as it has ranks
 REFUSED = {"--mode": "requires --loadckpt", "--shard_policy": None,
            "--device_cache": "no such link",
            "--data_parallel": "needs 2 processes",
@@ -192,14 +192,14 @@ REFUSED = {"--mode": "requires --loadckpt", "--shard_policy": None,
 
 
 @pytest.mark.parametrize("flag", [["--mode", "finetune"],
-                                  ["--shard_policy", "depth"],
+                                  ["--shard_policy", "depth,spatial"],
                                   ["--shard_policy", "spatial"],
                                   ["--device_cache"],
                                   ["--data_parallel", "2"],
                                   ["--model_parallel", "2"]])
 def test_unported_options_are_refused(flag):
-    why = REFUSED[flag[0]] or {"depth": "A11b", "spatial": "8x worse"}[
-        flag[1]]
+    why = REFUSED[flag[0]] or {"depth,spatial": "8x worse",
+                               "spatial": "8x worse"}[flag[1]]
     with pytest.raises(SystemExit, match=why):
         cli.main(flag + ["--device", "cpu"])
 

@@ -61,13 +61,15 @@ def test_scan_sees_the_package():
                 "utils/profiling.py", "parallel/__init__.py",
                 "parallel/distributed.py", "parallel/mesh.py",
                 "parallel/equivalence.py", "data/registry.py",
-                "data/loader.py", "infer/engine.py"):
+                "data/loader.py", "infer/engine.py", "fuse/static.py",
+                "fuse/legacy.py", "fuse/gipuma.py", "train/metrics.py",
+                "native/__init__.py"):
         assert f"effi_mvs_plus_tpu_torch/{new}" in rel
 
 
 @pytest.mark.parametrize("flag,why", [
     (["--device_cache"], "a GPU host has no such link"),
-    (["--shard_policy", "depth"], "ROADMAP A11b"),
+    (["--shard_policy", "depth,spatial"], "measured 8x worse"),
     (["--shard_policy", "spatial"], "measured 8x worse"),
     (["--shard_policy", "views,spatial"], "measured 8x worse"),
     (["--shard_policy", "rows"], "unknown layout"),

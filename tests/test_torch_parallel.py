@@ -91,17 +91,22 @@ def test_view_blocks_and_refused_layouts():
         par.view_blocks(2, 3)
     assert par.layout_kinds("views") == par.layout_kinds(" views,") == \
         {"views"}
-    with pytest.raises(ValueError, match="A11b"):
-        par.layout_kinds("views,depth")
+    assert par.layout_kinds("views,depth") == {"views", "depth"}
+    assert par.layout_kinds("depth") == {"depth"}
+    with pytest.raises(ValueError, match="8x worse"):
+        par.layout_kinds("depth,spatial")
     with pytest.raises(ValueError, match="8x worse"):
         par.layout_kinds("spatial")
     with pytest.raises(ValueError, match="unknown layout"):
         par.layout_kinds("rows")
     with pytest.raises(ValueError, match="no model-axis layout"):
         par.layout_kinds(" ,")
-    # a grid of one model rank shards nothing; of two, the views
+    # a grid of one model rank shards nothing; of two, the views (and,
+    # asked, the depths)
     assert not par.ShardingPolicy(par.Mesh(1, 1)).shard_views
     assert par.ShardingPolicy(par.Mesh(1, 2)).shard_views
+    assert not par.ShardingPolicy(par.Mesh(1, 2)).shard_depth
+    assert not par.ShardingPolicy(par.Mesh(1, 1), shard_depth=True).shard_depth
 
 
 class _Samples:
