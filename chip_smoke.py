@@ -31,7 +31,9 @@ imports nothing of JAX.  It
    kernels' own counters, and K3's ``global_atomics``, the adds that
    reached device memory (outside the windows, and the windows' flush),
    beside ``atomics``, one a tap and channel (every add of a scatter
-   straight into device memory);
+   straight into device memory); their ``bound_ms`` counts the source
+   texels that the taps reach (``src_texels_tapped``, the share of the
+   source maps), and K3's also the write of the whole ``d_src``;
 3. drives the serving path: ``InferenceEngine(device="cuda")`` with the
    shipped DTU weights at the DTU eval config answers fp32 and bf16
    requests and writes a scene with ``save_scene_depths``, with the
@@ -79,9 +81,18 @@ imports nothing of JAX.  It
    hypotheses) and the JAX CLI's default ``views,depth``, against this
    process's single-process results (``parallel/equivalence.py``, the JAX
    gate's bounds), with each rank's peak memory, after K1 on each D-block
-   of the expanded stage-1 sweep against its plain version; NCCL across
-   cards is not exercised;
-9. prints each phase's seconds, a ``{"kernels": [...]}`` line (K2 and K4
+   of the expanded stage-1 sweep against its plain version; then
+   (``distributed_spatial``) the row-sharded step (``spatial``: 288 + 288
+   image rows, stage 1 36 + 36) and ``views,spatial`` at the fine-tune
+   config with each rank's peak memory and K1/K2/K3 launches, and the
+   row-sharded engine on the DTU request (864 rows: 416 + 448, K4 on the
+   row blocks) against the single process's maps, after K1 and K3 on the
+   two row blocks of the fine-tune stage-1 and stage-3 shapes (each
+   against its plain version with the same row offset, K1 also against
+   the whole image's rows); NCCL across cards is not exercised;
+9. runs the compile-check entry (``entry.py``): ``entry()``'s forward on
+   the card against the CPU, and ``dryrun_multichip(2)``;
+10. prints each phase's seconds, a ``{"kernels": [...]}`` line (K2 and K4
    entries name the CUDA route of each layer in ``cuda_route``: ``mma``
    on the tensor cores, ``fma`` on the CUDA cores), the card's name and
    power limit, then the device line last.
@@ -353,8 +364,9 @@ def plain_kernels(cuda_warp, cuda_gru, cuda_conv):
     saved = (cuda_warp.warp_correlate_views, cuda_gru.gru_step,
              cuda_conv.conv_bn_relu_chain)
 
-    def warp_plain(ref, src, rots, trs, depth):
-        return cuda_warp._views_torch(ref, src, rots, trs, depth).to(ref.dtype)
+    def warp_plain(ref, src, rots, trs, depth, y0=0):
+        return cuda_warp._views_torch(ref, src, rots, trs, depth,
+                                      y0).to(ref.dtype)
 
     def gru_plain(h, x, p, packed=None):
         return cuda_gru._gru_torch(h, x, p.convz.weight, p.convr.weight,
@@ -447,8 +459,10 @@ def run(torch, card):
         seconds["blend_render"] = lap()
         finetune, test = finetune_path(torch, root, tree, listfile)
         seconds["finetune_path"] = lap()
-        distributed_phase(torch, tree, listfile, sd)
+        rows_entries = distributed_phase(torch, tree, listfile, sd)
         seconds["distributed"] = lap()
+    entry_phase(torch)
+    seconds["entry"] = lap()
 
     for e in entries:
         name = {"warp_correlate": "k1_launches", "conv_gru": "k2_launches",
@@ -469,7 +483,8 @@ def run(torch, card):
         e["launches_finetune_test"] = test["k4_launches"]
     log({"phase": "seconds", **seconds,
          "total": time.perf_counter() - t_run})
-    print(json.dumps({"kernels": entries + chain_entries}), flush=True)
+    print(json.dumps({"kernels": entries + chain_entries + rows_entries}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -569,7 +584,8 @@ def warp_entry(torch, gen, cname, cfg, proj_ms, dv, s, dname, dtype):
     cuda_warp._views_cuda(ref, src, rots, trs, depth, stats)
     esz = ref.element_size()
     n_out = B * V * D * h * w
-    byts = (ref.numel() + src.numel() + n_out) * esz \
+    tapped = tapped_texels(torch, geometry, rots, trs, depth, h, w)
+    byts = (ref.numel() + tapped * C + n_out) * esz \
         + unique_bytes(depth) + (rots.numel() + trs.numel()) * 4
     bms, bby = bound(byts, n_out * (10 * C + 16), dname)
     return dict(
@@ -580,6 +596,7 @@ def warp_entry(torch, gen, cname, cfg, proj_ms, dv, s, dname, dtype):
         shape=f"B{B} V{V} D{D} {h}x{w} C{C}",
         launches_per_forward=3, max_abs_err=err,
         window_share=window_share(stats), texel_reads=int(stats.sum()),
+        src_texels_tapped=tapped / (B * V * h * w),
         ms=median_ms(torch, k1, 21),
         plain_ms=median_ms(torch, p1, 3),
         bound_ms=bms, bound_by=bby, library_ms=None)
@@ -770,26 +787,51 @@ def serving_path(torch, sd):
     return k1_main, k2_main, k4_main
 
 
-def plain_bwd(torch, cuda_warp, ref, src, rots, trs, depth):
+def plain_bwd(torch, cuda_warp, ref, src, rots, trs, depth, y0=0):
     """The plain backward: autograd of the plain warp, in fp32 on the same
-    values.  Returns grad(g) -> (d_ref, d_src), graph kept for reruns."""
+    values (ref rows from ``y0``).  Returns grad(g) -> (d_ref, d_src),
+    graph kept for reruns."""
     r = ref.float().requires_grad_()
     s = src.float().requires_grad_()
-    out = cuda_warp._views_torch(r, s, rots, trs, depth)
+    out = cuda_warp._views_torch(r, s, rots, trs, depth, y0)
     return lambda g: torch.autograd.grad(out, (r, s), g.float(),
                                          retain_graph=True)
 
 
-def valid_taps(torch, geometry, rots, trs, depth, h, w):
-    """In-image bilinear taps of the warp over all views and hypotheses:
-    K3 reads, accumulates and scatters C channels for each."""
+def valid_taps(torch, geometry, rots, trs, depth, h, w, row0=0):
+    """In-image bilinear taps of the warp over all views and hypotheses
+    (depth's ref rows from ``row0``, source maps of h rows): K3 reads,
+    accumulates and scatters C channels for each."""
     n = 0
     for v in range(rots.shape[1]):
-        px, py = geometry.project_to_src(rots[:, v], trs[:, v], depth, h, w)
+        px, py = geometry.project_to_src(rots[:, v], trs[:, v], depth,
+                                         depth.shape[2], w, row0)
         x0, y0 = torch.floor(px), torch.floor(py)
         inx = [(x0 + o >= 0) & (x0 + o < w) for o in (0, 1)]
         iny = [(y0 + o >= 0) & (y0 + o < h) for o in (0, 1)]
         n += sum(int((a & b).sum()) for a in inx for b in iny)
+    return n
+
+
+def tapped_texels(torch, geometry, rots, trs, depth, h, w, row0=0):
+    """Distinct source texels, counted per batch and view, that the
+    warp's in-image bilinear taps reach (depth's ref rows from ``row0``,
+    source maps of h rows): what a kernel must read of the sources."""
+    B, n = depth.shape[0], 0
+    b = torch.arange(B, device=depth.device).view(B, 1, 1, 1)
+    for v in range(rots.shape[1]):
+        px, py = geometry.project_to_src(rots[:, v], trs[:, v], depth,
+                                         depth.shape[2], w, row0)
+        x0, y0 = torch.floor(px), torch.floor(py)
+        hit = torch.zeros(B * h * w, dtype=torch.bool, device=depth.device)
+        for oy in (0, 1):
+            for ox in (0, 1):
+                x, y = x0 + ox, y0 + oy
+                ok = (x >= 0) & (x < w) & (y >= 0) & (y < h)
+                flat = (b * h + y.clamp(0, h - 1).long()) * w + x.clamp(
+                    0, w - 1).long()
+                hit[flat[ok]] = True
+        n += int(hit.sum())
     return n
 
 
@@ -833,8 +875,11 @@ def bwd_kernel_phases(torch, gen):
                 _, err, scale, rerun = check(what, ref, src, rots, trs,
                                              depth, g, dname, stats)
                 taps = valid_taps(torch, geometry, rots, trs, depth, h, w)
+                tapped = tapped_texels(torch, geometry, rots, trs, depth, h,
+                                       w)
                 esz = ref.element_size()
-                byts = (2 * (ref.numel() + src.numel()) + g.numel()) * esz \
+                byts = (2 * ref.numel() + tapped * C + src.numel()
+                        + g.numel()) * esz \
                     + unique_bytes(depth) + (rots.numel() + trs.numel()) * 4
                 bms, bby = bound(byts, 20 * g.numel() + 4 * C * taps, dname)
                 grad = plain_bwd(torch, cuda_warp, ref, src, rots, trs, depth)
@@ -846,6 +891,7 @@ def bwd_kernel_phases(torch, gen):
                     config=cname, stage=s + 1, dtype=dname,
                     shape=f"B{B} V{V} D{D} {h}x{w} C{C}",
                     launches_per_forward=3, atomics=taps * C,
+                    src_texels_tapped=tapped / (B * V * h * w),
                     global_atomics=int(stats[1] + stats[2]),
                     window_share=window_share(stats),
                     max_abs_err=err, tolerance=ATOL["warp_correlate_bwd"]
@@ -1842,15 +1888,24 @@ def distributed_phase(torch, tree, listfile, sd):
     sources, fp32), then the depth-sharded step (``depth``: each rank
     warps 48 of the 96 stage-1 hypotheses and 4 of the 8 of stages 2-3
     of every view) and the JAX CLI's default ``views,depth`` (3 + 3
-    sources, then 48 + 48 planes of the summed volume), each against this
-    process's single-process result.  Before the spawns, K1 runs on each
-    D-block of the expanded stage-1 sweep (``depth_block_k1``)."""
+    sources, then 48 + 48 planes of the summed volume), then the
+    row-sharded step (``spatial``: each rank 288 of the 576 image rows of
+    every activation), ``views,spatial`` (3 + 3 sources over all rows,
+    then 288 + 288 rows) and the row-sharded engine (416 + 448 of the 864
+    rows, K4 on the row blocks), each against this process's
+    single-process result.  Before the spawns, K1 runs on each D-block of
+    the expanded stage-1 sweep (``depth_block_k1``), and K1 and K3 on the
+    row blocks of the fine-tune stage-1 and stage-3 shapes
+    (``row_block_kernels``).  Returns the row-block kernel entries, their
+    launches a rank's ``spatial`` step."""
     from effi_mvs_plus_tpu_torch.data import cams as camio
     from effi_mvs_plus_tpu_torch.models import EffiMVSConfig
     from effi_mvs_plus_tpu_torch.ops import cuda_warp
     from effi_mvs_plus_tpu_torch.parallel import equivalence as E
     with torch.inference_mode():
         blocks = depth_block_k1(torch)
+    torch.cuda.empty_cache()
+    row_blocks, rows_entries = row_block_kernels(torch)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     request = dtu_batch(camio)
@@ -1869,14 +1924,25 @@ def distributed_phase(torch, tree, listfile, sd):
         depth = E.spawn(2, ["depth", "views_depth"], ref, work,
                         backend="gloo", device="cuda", timeout=600,
                         threads=4)
+        t_rows = time.perf_counter()
+        rows = E.spawn(2, ["spatial", "views_spatial", "engine_spatial"],
+                       ref, work, backend="gloo", device="cuda",
+                       timeout=600, threads=4)
+        rows_s = time.perf_counter() - t_rows
     for name, r in [*((n, report[n]) for n in ("data", "views")),
-                    *((n, depth[n]) for n in ("depth", "views_depth"))]:
+                    *((n, depth[n]) for n in ("depth", "views_depth")),
+                    *((n, rows[n]) for n in ("spatial", "views_spatial"))]:
         n = r["launches"]
         if not (n["k1"] == 3 and n["k2"] == 9 and n["k3"] == 3):
             raise AssertionError(f"distributed {name}: launches {n}")
         r.pop("grad_rel_l2")
-    if report["engine"]["launches"]["k4"] != 8:
-        raise AssertionError(f"distributed engine: {report['engine']}")
+    for name, r in (("engine", report["engine"]),
+                    ("engine_spatial", rows["engine_spatial"])):
+        if r["launches"]["k4"] != 8:
+            raise AssertionError(f"distributed {name}: {r}")
+    for e in rows_entries:
+        e["launches"] = rows["spatial"]["launches"][
+            "k1" if e["name"] == "warp_correlate" else "k3"]
     bounds = {"dloss": f"{E.LOSS_RTOL} (1 + |loss|)",
               "max_dparam": E.PARAM_ATOL, "grad_rel_l2": E.GRAD_REL}
     log({"phase": "distributed", "ranks": 2,
@@ -1899,6 +1965,126 @@ def distributed_phase(torch, tree, listfile, sd):
              for name, d in (("depth", D1 // 2), ("views_depth", D1))},
          "k1_depth_blocks": blocks, **depth, "bounds": bounds,
          "seconds": time.perf_counter() - t0})
+    log({"phase": "distributed_spatial", "ranks": 2,
+         "route": "gloo on CUDA tensors, both ranks on cuda:0; halos, "
+                  "gathers and BN sums as all_reduces of zero-padded blocks",
+         "step_config": "blend_finetune B8 V7 768x576 96/8/8 fp32, image "
+                        "rows 288 + 288 (stage 1: 36 + 36)",
+         "engine_config": "dtu B6 V5 1152x864 48/8/8 fp32, image rows "
+                          "416 + 448 (stage 1: 52 + 56)",
+         "single_process_loss": ref["step"][0],
+         "single_process_peak_gib": single_peak,
+         "single_process_memory": ref["memory"],
+         "k1_k3_row_blocks": row_blocks, **rows, "bounds": bounds,
+         "seconds": rows_s})
+    return rows_entries
+
+
+def row_block_kernels(torch):
+    """K1 and K3 on the two row blocks of the fine-tune config's image
+    (288 + 288 rows) at stage 1 (72x96, C=32, the expanded 96-hypothesis
+    sweep: K1's windowed kernel) and stage 3 (288x384, C=8, 8 per-pixel
+    hypotheses: K1's direct kernel), fp32 as the fine-tune step runs:
+    each block's reference rows and depths against the whole source maps
+    with the block's row offset, held against the plain version with the
+    same offset (``check_kernel``) and timed; K1 also read against the
+    whole image's kernel output on those rows (equal bit for bit: a ray
+    is formed from the pixel's row in the whole image).  A block's bound
+    counts the source texels its taps reach (``tapped_texels``), and K3's
+    the write of the whole ``d_src``.  Returns (the readings, the
+    kernel-line entries)."""
+    from effi_mvs_plus_tpu_torch.core import geometry
+    from effi_mvs_plus_tpu_torch.data import cams as camio
+    from effi_mvs_plus_tpu_torch.ops import cuda_warp
+    from effi_mvs_plus_tpu_torch.parallel import row_blocks_of
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    proj_ms, dv = rig(BLEND, camio)
+    readings, entries = [], []
+    for s in (0, 2):
+        ref, src, rots, trs, depth = stage_inputs(
+            torch, geometry, BLEND, proj_ms, dv, s, torch.float32, gen)
+        B, V, D = src.shape[0], src.shape[1], depth.shape[1]
+        h, w, C = ref.shape[1], ref.shape[2], ref.shape[3]
+        with torch.inference_mode():
+            whole = cuda_warp.warp_correlate_views(ref, src, rots, trs, depth)
+        texels = B * V * h * w
+        whole_share = tapped_texels(torch, geometry, rots, trs, depth, h,
+                                    w) / texels
+        k = BLEND["H"] // h
+        for m, (a, b) in enumerate(row_blocks_of(BLEND["H"], 2)):
+            y0, hb = a // k, (b - a) // k
+            rb, db = ref[:, y0:y0 + hb], depth[:, :, y0:y0 + hb]
+            what = f"blend stage{s + 1} rows {y0}-{y0 + hb - 1}"
+            with torch.inference_mode():
+                got = cuda_warp.warp_correlate_views(rb, src, rots, trs, db,
+                                                     y0)
+                err = check_kernel("warp_correlate", what, got,
+                                   cuda_warp._views_torch(rb, src, rots, trs,
+                                                          db, y0), "float32")
+                diff = float((got - whole[:, :, :, y0:y0 + hb]).abs().max())
+                n_out = B * V * D * hb * w
+                tapped = tapped_texels(torch, geometry, rots, trs, db, h, w,
+                                       y0)
+                bms, bby = bound((rb.numel() + tapped * C + n_out) * 4
+                                 + unique_bytes(db)
+                                 + (rots.numel() + trs.numel()) * 4,
+                                 n_out * (10 * C + 16), "float32")
+                entries.append(dict(
+                    name="warp_correlate", route="cuda",
+                    source="effi_mvs_plus_tpu_torch/csrc/warp_correlate.cu",
+                    replaces="effi_mvs_plus_tpu/ops/pallas_warp.py:427",
+                    config="blend_rows", stage=s + 1, dtype="float32",
+                    shape=f"B{B} V{V} D{D} rows {y0}+{hb} of {h}x{w} C{C}",
+                    launches_per_forward=3, max_abs_err=err,
+                    max_abs_diff_whole_image=diff,
+                    src_texels_tapped=tapped / texels,
+                    ms=median_ms(torch, lambda: cuda_warp.warp_correlate_views(
+                        rb, src, rots, trs, db, y0), 21),
+                    plain_ms=median_ms(torch, lambda: cuda_warp._views_torch(
+                        rb, src, rots, trs, db, y0), 3),
+                    bound_ms=bms, bound_by=bby, library_ms=None))
+            g = torch.randn((B, V, D, hb, w), generator=gen, device="cuda")
+            d_ref, d_src = cuda_warp._views_bwd_cuda(rb, src, rots, trs, db, g,
+                                                     y0=y0)
+            grad = plain_bwd(torch, cuda_warp, rb, src, rots, trs, db, y0)
+            want = grad(g)
+            scale = max(1.0, *(float(t.abs().max()) for t in want))
+            err3 = max(check_kernel("warp_correlate_bwd", f"{what} {n}", a_,
+                                    b_, "float32", scale)
+                       for n, a_, b_ in zip(("d_ref", "d_src"),
+                                            (d_ref, d_src), want))
+            taps = valid_taps(torch, geometry, rots, trs, db, h, w, y0)
+            bms3, bby3 = bound((2 * rb.numel() + tapped * C + src.numel()
+                                + g.numel()) * 4
+                               + unique_bytes(db)
+                               + (rots.numel() + trs.numel()) * 4,
+                               20 * g.numel() + 4 * C * taps, "float32")
+            entries.append(dict(
+                name="warp_correlate_bwd", route="cuda",
+                source="effi_mvs_plus_tpu_torch/csrc/warp_correlate_bwd.cu",
+                replaces="effi_mvs_plus_tpu/ops/pallas_warp.py:777",
+                config="blend_rows", stage=s + 1, dtype="float32",
+                shape=f"B{B} V{V} D{D} rows {y0}+{hb} of {h}x{w} C{C}",
+                launches_per_forward=3, atomics=taps * C,
+                src_texels_tapped=tapped / texels, max_abs_err=err3,
+                tolerance=ATOL["warp_correlate_bwd"] * scale,
+                ms=median_ms(torch, lambda: cuda_warp._views_bwd_cuda(
+                    rb, src, rots, trs, db, g, y0=y0), 21),
+                plain_ms=median_ms(torch, lambda: grad(g), 3),
+                bound_ms=bms3, bound_by=bby3, library_ms=None))
+            readings.append({"stage": s + 1, "rows": [y0, y0 + hb],
+                             "src_texels_tapped": tapped / texels,
+                             "whole_image_src_texels_tapped": whole_share,
+                             "k1_max_abs_err": err,
+                             "k1_max_abs_diff_whole_image": diff,
+                             "k3_max_abs_err": err3})
+            log({"phase": "kernels", **entries[-2]})
+            log({"phase": "kernels", **entries[-1]})
+            del g, d_ref, d_src, grad, want
+        del ref, src, depth, whole
+        torch.cuda.empty_cache()
+    return readings, entries
 
 
 def depth_block_k1(torch):
@@ -1932,6 +2118,33 @@ def depth_block_k1(torch):
                     "max_abs_diff_whole_sweep": float(
                         (got - whole[:, :, m * n:(m + 1) * n]).abs().max())})
     return out
+
+
+def entry_phase(torch):
+    """The compile-check entry (``effi_mvs_plus_tpu_torch/entry.py``) on the
+    card: ``entry()``'s forward (seeded weights, 1x3x64x96) against the
+    same entry on the CPU within the fp32 map tolerance, and
+    ``dryrun_multichip(2)``, the gate of ``views,depth`` and ``spatial``
+    in two ranks (gloo on the one card) at the JAX bounds."""
+    from effi_mvs_plus_tpu_torch import entry
+    t0 = time.perf_counter()
+    fn, args = entry.entry()
+    got = fn(*args).cpu()
+    fn_c, args_c = entry.entry(device="cpu")
+    want = fn_c(*args_c)
+    tol = 0.005 * float(want.max() - want.min()) + 0.5
+    err = float((got - want).abs().max())
+    if not (tuple(got.shape) == (1, 64, 96) and err < tol):
+        raise AssertionError(f"entry: shape {tuple(got.shape)}, card "
+                             f"against CPU {err} (tolerance {tol})")
+    report = entry.dryrun_multichip(2)
+    log({"phase": "entry", "shape": list(got.shape),
+         "card_vs_cpu_depth_abs": err, "tolerance": tol,
+         "dryrun": {k: {a: report[k][a] for a in (
+             "dloss", "max_dparam", "grad_worst_rel_l2", "grad_worst_leaf",
+             "grad_worst_ref_norm", "grad_median_ref_norm", "launches")}
+             for k in ("views,depth", "spatial")},
+         "seconds": time.perf_counter() - t0})
 
 
 def gru_module(sd, stage, hd):

@@ -10,7 +10,7 @@ port checkpoint.
 Multi-process (``torchrun``, one process per GPU): each rank infers and
 fuses its round-robin share of ``--scenes``; with ``--shard_views`` the
 ranks instead split the source views of every request
-(``InferenceEngine(shard_views=True)``) and rank 0 writes the maps and
+(``InferenceEngine(shard_policy="views")``) and rank 0 writes the maps and
 fuses.
 
 Usage:
@@ -84,7 +84,8 @@ def save_depths(args):
         CostNum=args.CostNum, compute_dtype=torch.bfloat16)
     engine = InferenceEngine(load_state_dict(args.loadckpt), cfg,
                              device=args.device,
-                             shard_views=args.shard_views)
+                             shard_policy="views" if args.shard_views
+                             else None)
     out = {}
     for scene in args.scenes:
         ds = TanksDataset(args.testpath, [scene], args.num_view,

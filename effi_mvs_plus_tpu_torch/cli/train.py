@@ -20,16 +20,19 @@ checkpoint.  Runs on ``--device`` (``cuda`` unless told otherwise).
   ``--batch_size`` is the global batch, each data rank reads its own
   shard of the samples and takes ``batch_size / data`` of them a step,
   and with ``--model_parallel > 1`` the model ranks split the source
-  views, the cost volume's hypotheses or both (``--shard_policy``,
-  ``views,depth`` by default, as the JAX CLI's).  Checkpoints and the
-  metrics JSONL are written by rank 0.
+  views, the cost volume's hypotheses, the image rows, or the views with
+  one of the others (``--shard_policy``, ``views,depth`` by default, as
+  the JAX CLI's).  Checkpoints and the metrics JSONL are written by
+  rank 0.
 
-Refused with an error: ``--device_cache`` (``data/device_cache.py`` of the
-JAX package hid a slow host link of the machine it was written for; a
-GPU host has no such link), ``--shard_policy spatial`` (measured 8x
-worse; ROADMAP A11) and a depth split of ``--ndepths`` over
-``--model_parallel`` into blocks the 3-D U-Net's halos cannot serve
-(``parallel.depth_split_error``).
+Refused with an error, before any work: ``--device_cache``
+(``data/device_cache.py`` of the JAX package hid a slow host link of the
+machine it was written for; a GPU host has no such link),
+``--shard_policy depth,spatial`` (ROADMAP A11d), a depth split of
+``--ndepths`` over ``--model_parallel`` into blocks the 3-D U-Net's
+halos cannot serve (``parallel.depth_split_error``) and a row split of
+the images that leaves a model rank no rows
+(``parallel.row_split_error``).
 
 Usage:
   python -m effi_mvs_plus_tpu_torch.cli.train --mode train \
@@ -45,7 +48,7 @@ Usage:
   torchrun --nproc_per_node 2 -m effi_mvs_plus_tpu_torch.cli.train \
       --mode finetune --trainpath BLENDEDMVS_ROOT \
       --loadckpt checkpoints/model_dtu.npz --model_parallel 2 \
-      --shard_policy depth
+      --shard_policy spatial
 """
 
 from __future__ import annotations
@@ -118,7 +121,9 @@ def build_parser(profile_name="dtu_train"):
                         "per-view warps and PixelwiseNet sharded, the view "
                         "sums all-reduced), depth (each rank a block of "
                         "every stage's hypotheses through the 3-D U-Net "
-                        "and the CSP blocks, with halos along D); spatial "
+                        "and the CSP blocks, with halos along D), spatial "
+                        "(each rank a block of image rows of every "
+                        "activation, with halos along H); depth,spatial "
                         "is refused")
     profile = get_profile(profile_name)
     apply_profile_defaults(p, profile)
@@ -148,6 +153,23 @@ def _refuse_unported(args):
             if why:
                 raise SystemExit(f"--shard_policy {args.shard_policy}, "
                                  f"stage {s + 1}: {why}")
+
+
+def _refuse_row_split(args, *datasets):
+    """Under spatial sharding, refuse, with the reason, images whose rows
+    do not give every model rank a block (read from each dataset's first
+    sample)."""
+    import numpy as np
+    from effi_mvs_plus_tpu_torch.parallel import (layout_kinds,
+                                                  row_split_error)
+    if "spatial" not in layout_kinds(args.shard_policy) \
+            or args.model_parallel == 1:
+        return
+    for ds in datasets:
+        H = np.asarray(ds[0]["imgs"]).shape[-3]
+        why = row_split_error(H, args.model_parallel)
+        if why:
+            raise SystemExit(f"--shard_policy {args.shard_policy}: {why}")
 
 
 def make_policy(args):
@@ -259,6 +281,7 @@ def main(argv=None):
     # its mode "finetune", which neither CLI passes)
     train_ds = ds_cls(args.trainpath, args.trainlist, "train",
                       args.trainviews, args.numdepth)
+    _refuse_row_split(args, train_ds, test_ds)
     train_idx = shard_indices(len(train_ds), policy)
     test_idx = shard_indices(len(test_ds), policy)
     n_test = len(test_ds) if test_idx is None else len(test_idx)

@@ -116,9 +116,10 @@ def depth_range_samples_local(cur_depth, ndepth, interval):
     return torch.clamp(samples, min=1e-5)
 
 
-def pixel_grid(height, width, dtype=torch.float32, device=None):
-    """Homogeneous pixel grid (3, H*W): rows (x, y, 1)."""
-    y, x = torch.meshgrid(torch.arange(height, dtype=dtype, device=device),
+def pixel_grid(height, width, dtype=torch.float32, device=None, y0=0):
+    """Homogeneous pixel grid (3, H*W): rows (x, y, 1), y from ``y0``."""
+    y, x = torch.meshgrid(torch.arange(y0, y0 + height, dtype=dtype,
+                                       device=device),
                           torch.arange(width, dtype=dtype, device=device),
                           indexing="ij")
     x = x.reshape(-1)
@@ -126,15 +127,16 @@ def pixel_grid(height, width, dtype=torch.float32, device=None):
     return torch.stack([x, y, torch.ones_like(x)], dim=0)
 
 
-def project_to_src(rot, trans, depth, height, width):
+def project_to_src(rot, trans, depth, height, width, y0=0):
     """Project the ref pixel grid at per-pixel depths into a source view.
 
-    rot: (B,3,3); trans: (B,3); depth: (B,D,H,W) actual depths.
+    rot: (B,3,3); trans: (B,3); depth: (B,D,H,W) actual depths of ref
+    rows y0 .. y0 + H - 1.
     Returns px, py: (B,D,H,W) source-view pixel coordinates, with the
     reference's z==0 -> z+1e-8 guard.
     """
     B, D, H, W = depth.shape
-    grid = pixel_grid(height, width, depth.dtype, depth.device)   # (3, HW)
+    grid = pixel_grid(height, width, depth.dtype, depth.device, y0)
     ray = torch.einsum("bij,jp->bip", rot, grid)                  # (B,3,HW)
     xyz = (ray[:, :, None, :] * depth.reshape(B, 1, D, H * W)
            + trans[:, :, None, None])                             # (B,3,D,HW)

@@ -6,8 +6,8 @@
 //
 //   corr[b,v,d,y,x] = (1/C) * sum_c ref[b,y,x,c] * bilinear(src[b,v], px, py)[c]
 //
-// where (px, py) projects ref pixel (x, y) at depth[b,d,y,x] through
-// rot[b,v] and trans[b,v]: ray = rot.[x,y,1], xyz = ray*depth + trans, the
+// where (px, py) projects ref pixel (x, y0 + y) at depth[b,d,y,x] through
+// rot[b,v] and trans[b,v]: ray = rot.[x,y0+y,1], xyz = ray*depth + trans, the
 // z==0 -> z+1e-8 guard, px = xyz.x/z, py = xyz.y/z.  Bilinear sampling is
 // grid_sample's align_corners=True / zeros padding: each out-of-image tap
 // contributes 0, weights are not renormalised.  The projection and taps
@@ -46,6 +46,13 @@
 // and takes one product with ref.  Arithmetic is fp32 for fp32 and bf16 features alike (bf16 texels are
 // unpacked in registers); the output is stored once in the features'
 // dtype.
+//
+// Row blocks.  The ref maps (ref, depth, out) hold Hr rows starting at
+// row y0 of the reference, and the source maps all Hs rows: under spatial
+// sharding a rank correlates its block of ref rows against the whole
+// source features (y0 = 0, Hr = Hs otherwise).  A pixel's ray is formed
+// from its global row y0 + y, as the whole image's, so a block's output
+// is bitwise the whole image's rows; taps and windows clip to Hs.
 
 #include "warp_window.cuh"
 
@@ -119,15 +126,15 @@ struct Pixel {
   const float* dep;
 };
 
-__device__ __forceinline__ Pixel pixel_of(int tile, int tiles_x, int H, int W,
+__device__ __forceinline__ Pixel pixel_of(int tile, int tiles_x, int Hr, int W, int y0,
                                           const float* rot, const float* trans,
                                           const float* depth, long long dep_sh,
                                           long long dep_sw) {
   Pixel p;
   p.y = (tile / tiles_x) * effi::TILE_H + threadIdx.x / TILE_W;
   p.x = (tile % tiles_x) * TILE_W + threadIdx.x % TILE_W;
-  p.inside = p.y < H && p.x < W;
-  p.ray = effi::make_ray(rot, trans, p.x, p.y);
+  p.inside = p.y < Hr && p.x < W;
+  p.ray = effi::make_ray(rot, trans, p.x, y0 + p.y);
   p.dep = depth + (p.inside ? p.y * dep_sh + p.x * dep_sw : 0);
   return p;
 }
@@ -178,7 +185,7 @@ __global__ void __launch_bounds__(TILE_N)
 warp_correlate_kernel(const T* __restrict__ ref, const T* __restrict__ src,
                       const float* __restrict__ rot, const float* __restrict__ trans,
                       const float* __restrict__ depth, T* __restrict__ out,
-                      int V, int D, int H, int W,
+                      int V, int D, int Hr, int Hs, int W, int y0,
                       long long ref_bstride, long long src_bstride,
                       long long dep_sb, long long dep_sd, long long dep_sh,
                       long long dep_sw, int dc, int cap, int items_per_block,
@@ -189,15 +196,15 @@ warp_correlate_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   constexpr int CP = window_stride<T, C>();
   T* const bufs = reinterpret_cast<T*>(smem);  // two of cap * CP
 
-  const int HW = H * W;
+  const int HW = Hr * W;  // ref and output pixels
   const int tiles_x = (W + TILE_W - 1) / TILE_W;
-  const int tiles = tiles_x * ((H + effi::TILE_H - 1) / effi::TILE_H);
+  const int tiles = tiles_x * ((Hr + effi::TILE_H - 1) / effi::TILE_H);
   const int v = blockIdx.y;
   const int b = blockIdx.z;
   const float* R = rot + (b * V + v) * 9;
   const float* tr = trans + (b * V + v) * 3;
   const float* depth_b = depth + b * dep_sb;
-  const T* s = src + b * src_bstride + (long long)v * HW * C;
+  const T* s = src + b * src_bstride + (long long)v * Hs * W * C;
   const float inv_c = 1.0f / (float)C;
   // the block's work: items (tile, chunk) item0 .. item0 + items - 1 of
   // the (b, v) in order, the chunks of a tile in a row
@@ -208,11 +215,12 @@ warp_correlate_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   // the window of item i, found by the block and written to wins[slot]
   auto item_window = [&](int i, int slot) {
     const int ch = (item0 + i) % nch;
-    const Pixel p = pixel_of((item0 + i) / nch, tiles_x, H, W, R, tr, depth_b, dep_sh, dep_sw);
+    const Pixel p = pixel_of((item0 + i) / nch, tiles_x, Hr, W, y0, R, tr, depth_b, dep_sh,
+                             dep_sw);
     effi::Box box = effi::empty_box();
     if (p.inside)
       effi::box_add_span(box, p.ray, __ldg(p.dep + ch * dc * dep_sd),
-                         __ldg(p.dep + (min(D, (ch + 1) * dc) - 1) * dep_sd), H, W);
+                         __ldg(p.dep + (min(D, (ch + 1) * dc) - 1) * dep_sd), Hs, W);
     return effi::block_window(box, cap, red, &wins[slot]);
   };
 
@@ -238,7 +246,7 @@ warp_correlate_kernel(const T* __restrict__ ref, const T* __restrict__ src,
     }
     if (tile != (item0 + i) / nch) {  // a new tile: its pixel, ray and ref vector
       tile = (item0 + i) / nch;
-      px = pixel_of(tile, tiles_x, H, W, R, tr, depth_b, dep_sh, dep_sw);
+      px = pixel_of(tile, tiles_x, Hr, W, y0, R, tr, depth_b, dep_sh, dep_sw);
       if (px.inside) {
         load_vec<C>(ref + b * ref_bstride + ((long long)px.y * W + px.x) * C, r);
       } else {
@@ -255,7 +263,7 @@ warp_correlate_kernel(const T* __restrict__ ref, const T* __restrict__ src,
       const int d1 = min(D, (ch + 1) * dc);
       T* o = out + ((long long)(b * V + v) * D) * HW + px.y * W + px.x;
       for (int d = ch * dc; d < d1; ++d) {
-        const effi::Taps tp = effi::taps_at(px.ray, __ldg(px.dep + d * dep_sd), H, W);
+        const effi::Taps tp = effi::taps_at(px.ray, __ldg(px.dep + d * dep_sd), Hs, W);
         if (!tp.any) {
           have = false;
         } else if (!have || tp.x0 != cx || tp.y0 != cy) {
@@ -295,11 +303,11 @@ __global__ void __launch_bounds__(TILE_N)
 warp_correlate_direct_kernel(const T* __restrict__ ref, const T* __restrict__ src,
                              const float* __restrict__ rot, const float* __restrict__ trans,
                              const float* __restrict__ depth, T* __restrict__ out,
-                             int V, int D, int H, int W, long long ref_bstride,
+                             int V, int D, int Hr, int Hs, int W, int y0, long long ref_bstride,
                              long long src_bstride, long long dep_sb, long long dep_sd,
                              long long dep_sh, long long dep_sw,
                              unsigned long long* __restrict__ stats) {
-  const int HW = H * W;
+  const int HW = Hr * W;  // ref and output pixels
   const int pix = blockIdx.x * TILE_N + threadIdx.x;
   const int v = blockIdx.y;
   const int b = blockIdx.z;
@@ -309,13 +317,14 @@ warp_correlate_direct_kernel(const T* __restrict__ ref, const T* __restrict__ sr
     const int x = pix - y * W;
     float r[C];
     load_vec<C>(ref + b * ref_bstride + (long long)pix * C, r);
-    const effi::Ray ray = effi::make_ray(rot + (b * V + v) * 9, trans + (b * V + v) * 3, x, y);
-    const T* s = src + b * src_bstride + (long long)v * HW * C;
+    const effi::Ray ray =
+        effi::make_ray(rot + (b * V + v) * 9, trans + (b * V + v) * 3, x, y0 + y);
+    const T* s = src + b * src_bstride + (long long)v * Hs * W * C;
     const float* dep = depth + b * dep_sb + y * dep_sh + x * dep_sw;
     T* o = out + ((long long)(b * V + v) * D) * HW + pix;
     const float inv_c = 1.0f / (float)C;
     for (int d = 0; d < D; ++d) {
-      const effi::Taps tp = effi::taps_at(ray, __ldg(dep + d * dep_sd), H, W);
+      const effi::Taps tp = effi::taps_at(ray, __ldg(dep + d * dep_sd), Hs, W);
       float smp[C];
 #pragma unroll
       for (int c = 0; c < C; ++c) smp[c] = 0.0f;
@@ -346,7 +355,7 @@ int smem_bytes(int cap) {
 template <typename T, int C>
 cudaError_t launch_windows(const void* ref, const void* src, const void* rot,
                            const void* trans, const void* depth, void* out, int B,
-                           int V, int D, int H, int W, long long ref_bs,
+                           int V, int D, int Hr, int Hs, int W, int y0, long long ref_bs,
                            long long src_bs, const long long* ds, int dc, int cap,
                            unsigned long long* stats, cudaStream_t stream) {
   const int bytes = smem_bytes<T, C>(cap);
@@ -363,7 +372,7 @@ cudaError_t launch_windows(const void* ref, const void* src, const void* rot,
   // A block's items: a tile's chunks, split over blocks where the tiles
   // alone give an SM fewer than kBlocksPerSm blocks (the 64x80 training
   // maps: 640 blocks for 132 SMs).
-  const int tiles = ((H + effi::TILE_H - 1) / effi::TILE_H) * ((W + TILE_W - 1) / TILE_W);
+  const int tiles = ((Hr + effi::TILE_H - 1) / effi::TILE_H) * ((W + TILE_W - 1) / TILE_W);
   const int nch = (D + dc - 1) / dc;
   static int sms = 0;
   if (sms == 0) cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -375,7 +384,7 @@ cudaError_t launch_windows(const void* ref, const void* src, const void* rot,
   warp_correlate_kernel<T, C><<<grid, TILE_N, bytes, stream>>>(
       static_cast<const T*>(ref), static_cast<const T*>(src),
       static_cast<const float*>(rot), static_cast<const float*>(trans),
-      static_cast<const float*>(depth), static_cast<T*>(out), V, D, H, W,
+      static_cast<const float*>(depth), static_cast<T*>(out), V, D, Hr, Hs, W, y0,
       ref_bs, src_bs, ds[0], ds[1], ds[2], ds[3], dc, cap, per_block, stats);
   return cudaGetLastError();
 }
@@ -383,40 +392,42 @@ cudaError_t launch_windows(const void* ref, const void* src, const void* rot,
 template <typename T, int C>
 cudaError_t launch(const void* ref, const void* src, const void* rot,
                    const void* trans, const void* depth, void* out, int B,
-                   int V, int D, int H, int W, long long ref_bs,
+                   int V, int D, int Hr, int Hs, int W, int y0, long long ref_bs,
                    long long src_bs, const long long* ds, int dc, int cap,
                    unsigned long long* stats, cudaStream_t stream) {
   if (cap == 0) {
-    dim3 grid((H * W + TILE_N - 1) / TILE_N, V, B);
+    dim3 grid((Hr * W + TILE_N - 1) / TILE_N, V, B);
     warp_correlate_direct_kernel<T, C><<<grid, TILE_N, 0, stream>>>(
         static_cast<const T*>(ref), static_cast<const T*>(src),
         static_cast<const float*>(rot), static_cast<const float*>(trans),
-        static_cast<const float*>(depth), static_cast<T*>(out), V, D, H, W,
+        static_cast<const float*>(depth), static_cast<T*>(out), V, D, Hr, Hs, W, y0,
         ref_bs, src_bs, ds[0], ds[1], ds[2], ds[3], stats);
     return cudaGetLastError();
   }
-  return launch_windows<T, C>(ref, src, rot, trans, depth, out, B, V, D, H, W, ref_bs, src_bs, ds,
-                             dc, cap, stats, stream);
+  return launch_windows<T, C>(ref, src, rot, trans, depth, out, B, V, D, Hr, Hs, W, y0, ref_bs,
+                             src_bs, ds, dc, cap, stats, stream);
 }
 
 template <typename T>
 cudaError_t dispatch_c(int C, const void* ref, const void* src,
                        const void* rot, const void* trans, const void* depth,
-                       void* out, int B, int V, int D, int H, int W,
-                       long long ref_bs, long long src_bs, const long long* ds,
+                       void* out, int B, int V, int D, int Hr, int Hs, int W,
+                       int y0, long long ref_bs, long long src_bs, const long long* ds,
                        int dc, int cap, unsigned long long* stats,
                        cudaStream_t stream) {
   switch (C) {
-    case 8: return launch<T, 8>(ref, src, rot, trans, depth, out, B, V, D, H, W, ref_bs, src_bs, ds, dc, cap, stats, stream);
-    case 16: return launch<T, 16>(ref, src, rot, trans, depth, out, B, V, D, H, W, ref_bs, src_bs, ds, dc, cap, stats, stream);
-    case 32: return launch<T, 32>(ref, src, rot, trans, depth, out, B, V, D, H, W, ref_bs, src_bs, ds, dc, cap, stats, stream);
+    case 8: return launch<T, 8>(ref, src, rot, trans, depth, out, B, V, D, Hr, Hs, W, y0, ref_bs, src_bs, ds, dc, cap, stats, stream);
+    case 16: return launch<T, 16>(ref, src, rot, trans, depth, out, B, V, D, Hr, Hs, W, y0, ref_bs, src_bs, ds, dc, cap, stats, stream);
+    case 32: return launch<T, 32>(ref, src, rot, trans, depth, out, B, V, D, Hr, Hs, W, y0, ref_bs, src_bs, ds, dc, cap, stats, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides in elements; depth_strides
+// dtype: 0 = float32, 1 = bfloat16.  ref, depth and out hold Hr rows
+// from ref row y0, src all Hs rows (all rows: y0 = 0, Hr = Hs).  Strides
+// in elements; depth_strides
 // holds the (b, d, y, x) strides of the depth tensor, so an expanded
 // per-batch sweep (strides (D, 1, 0, 0)) is read without a copy.  dc: the
 // hypotheses of a chunk; cap: the texels of a window (ops/cuda_warp.py
@@ -426,8 +437,8 @@ cudaError_t dispatch_c(int C, const void* ref, const void* src,
 extern "C" int effi_warp_correlate(const void* ref, const void* src,
                                    const void* rot, const void* trans,
                                    const void* depth, void* out, int B,
-                                   int V, int D, int H, int W, int C,
-                                   long long ref_bstride,
+                                   int V, int D, int Hr, int Hs, int W,
+                                   int C, int y0, long long ref_bstride,
                                    long long src_bstride,
                                    long long dep_sb, long long dep_sd,
                                    long long dep_sh, long long dep_sw,
@@ -438,11 +449,12 @@ extern "C" int effi_warp_correlate(const void* ref, const void* src,
   auto* st = static_cast<unsigned long long*>(stats);
   if (dtype == 0)
     return (int)dispatch_c<float>(C, ref, src, rot, trans, depth, out, B, V,
-                                  D, H, W, ref_bstride, src_bstride, ds, dc,
-                                  cap, st, s);
+                                  D, Hr, Hs, W, y0, ref_bstride, src_bstride,
+                                  ds, dc, cap, st, s);
   if (dtype == 1)
     return (int)dispatch_c<__nv_bfloat16>(C, ref, src, rot, trans, depth,
-                                          out, B, V, D, H, W, ref_bstride,
-                                          src_bstride, ds, dc, cap, st, s);
+                                          out, B, V, D, Hr, Hs, W, y0,
+                                          ref_bstride, src_bstride, ds, dc,
+                                          cap, st, s);
   return (int)cudaErrorInvalidValue;
 }

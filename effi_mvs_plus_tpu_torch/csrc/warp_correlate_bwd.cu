@@ -9,7 +9,10 @@
 //   d_src[b,v,q,c] = sum_{d,y,x} (g[b,v,d,y,x]/C) * ref[b,y,x,c] * w_q
 //
 // where q runs over the four bilinear taps of (px, py) with weights w_q,
-// out-of-image taps dropped.  The projection grid gets no gradient (the
+// out-of-image taps dropped.  As in K1, the ref maps (ref, g, d_ref) hold
+// Hr rows from ref row y0 and the source maps (src, d_src) all Hs rows, a
+// pixel's ray is formed from its global row y0 + y, and taps and windows
+// clip to Hs.  The projection grid gets no gradient (the
 // rotations, translations and depths are constants of the warp), so the
 // taps and weights are those of the forward, from the same code
 // (warp_project.cuh): a coordinate rounded differently here would move a
@@ -78,8 +81,9 @@ warp_correlate_bwd_kernel(const T* __restrict__ ref, const T* __restrict__ src,
                           const float* __restrict__ trans,
                           const float* __restrict__ depth,
                           const T* __restrict__ g, float* __restrict__ part,
-                          float* __restrict__ d_src, int V, int D, int H,
-                          int W, long long ref_bstride, long long src_bstride,
+                          float* __restrict__ d_src, int V, int D, int Hr,
+                          int Hs, int W, int y0, long long ref_bstride,
+                          long long src_bstride,
                           long long dep_sb, long long dep_sd,
                           long long dep_sh, long long dep_sw, int dc, int cap,
                           unsigned long long* __restrict__ stats) {
@@ -90,22 +94,22 @@ warp_correlate_bwd_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   KeyMask* const keys = reinterpret_cast<KeyMask*>(gws + dc * TILE_N);
   float* const win = reinterpret_cast<float*>(keys + dc * TILE_N);  // cap * C
 
-  const int HW = H * W;
+  const int HW = Hr * W;  // ref pixels
   const int tiles_x = (W + TILE_W - 1) / TILE_W;
   const int ty0 = (blockIdx.x / tiles_x) * effi::TILE_H;
   const int tx0 = (blockIdx.x % tiles_x) * TILE_W;
   const int v = blockIdx.y;
   const int b = blockIdx.z;
-  const T* s = src + b * src_bstride + (long long)v * HW * C;
-  float* ds = d_src + (long long)(b * V + v) * HW * C;
+  const T* s = src + b * src_bstride + (long long)v * Hs * W * C;
+  float* ds = d_src + (long long)(b * V + v) * Hs * W * C;
   const float inv_c = 1.0f / (float)C;
 
   // projection role: thread -> pixel of the tile
   const int y = ty0 + threadIdx.x / TILE_W;
   const int x = tx0 + threadIdx.x % TILE_W;
-  const bool inside = y < H && x < W;
+  const bool inside = y < Hr && x < W;
   const effi::Ray ray = effi::make_ray(rot + (b * V + v) * 9,
-                                       trans + (b * V + v) * 3, x, y);
+                                       trans + (b * V + v) * 3, x, y0 + y);
   const float* dep = depth + b * dep_sb + (inside ? y * dep_sh + x * dep_sw : 0);
   const T* gv = g + ((long long)(b * V + v) * D) * HW + (inside ? y * W + x : 0);
 
@@ -120,7 +124,7 @@ warp_correlate_bwd_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   for (int i = 0; i < C; ++i) {
     const int p = 32 * warp + i * NP + grp;
     const int py = ty0 + p / TILE_W, px = tx0 + p % TILE_W;
-    rr[i] = (py < H && px < W)
+    rr[i] = (py < Hr && px < W)
                 ? to_f(ref[b * ref_bstride + ((long long)py * W + px) * C + c]) : 0.0f;
     dr[i] = 0.0f;
   }
@@ -138,8 +142,8 @@ warp_correlate_bwd_kernel(const T* __restrict__ ref, const T* __restrict__ src,
       float4 gw = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (inside) {
         const int d = d0 + dd;
-        const effi::Taps tp = effi::taps_at(ray, __ldg(dep + d * dep_sd), H, W);
-        effi::box_add(box, tp, H, W);
+        const effi::Taps tp = effi::taps_at(ray, __ldg(dep + d * dep_sd), Hs, W);
+        effi::box_add(box, tp, Hs, W);
         if (tp.any) {
           const float gd = to_f(gv[(long long)d * HW]) * inv_c;
           km.key = ((tp.y0 + 1) << 16) | (tp.x0 + 1);
@@ -226,7 +230,7 @@ warp_correlate_bwd_kernel(const T* __restrict__ ref, const T* __restrict__ src,
   for (int i = 0; i < C; ++i) {
     const int p = 32 * warp + i * NP + grp;
     const int py = ty0 + p / TILE_W, px = tx0 + p % TILE_W;
-    if (py < H && px < W) pv[((long long)py * W + px) * C + c] = dr[i];
+    if (py < Hr && px < W) pv[((long long)py * W + px) * C + c] = dr[i];
   }
   effi::add_stats<3>(stats, n);
 }
@@ -260,7 +264,7 @@ template <typename T, int C>
 cudaError_t launch(const void* ref, const void* src, const void* rot,
                    const void* trans, const void* depth, const void* g,
                    void* d_ref, void* part, void* d_src, int B, int V, int D,
-                   int H, int W, long long ref_bs, long long src_bs,
+                   int Hr, int Hs, int W, int y0, long long ref_bs, long long src_bs,
                    const long long* ds, int dc, int cap,
                    unsigned long long* stats, cudaStream_t stream) {
   const int bytes = smem_bytes(C, dc, cap);
@@ -274,17 +278,17 @@ cudaError_t launch(const void* ref, const void* src, const void* rot,
     if (e != cudaSuccess) return e;
     sized |= 1u << (dev & 31);
   }
-  const int tiles = ((H + effi::TILE_H - 1) / effi::TILE_H) * ((W + TILE_W - 1) / TILE_W);
+  const int tiles = ((Hr + effi::TILE_H - 1) / effi::TILE_H) * ((W + TILE_W - 1) / TILE_W);
   dim3 grid(tiles, V, B);
   warp_correlate_bwd_kernel<T, C><<<grid, TILE_N, bytes, stream>>>(
       static_cast<const T*>(ref), static_cast<const T*>(src),
       static_cast<const float*>(rot), static_cast<const float*>(trans),
       static_cast<const float*>(depth), static_cast<const T*>(g),
-      static_cast<float*>(part), static_cast<float*>(d_src), V, D, H, W,
+      static_cast<float*>(part), static_cast<float*>(d_src), V, D, Hr, Hs, W, y0,
       ref_bs, src_bs, ds[0], ds[1], ds[2], ds[3], dc, cap, stats);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const long long n = (long long)H * W * C;
+  const long long n = (long long)Hr * W * C;
   dim3 sgrid((unsigned)((n / 4 + 255) / 256), B);
   dref_sum_kernel<T><<<sgrid, 256, 0, stream>>>(static_cast<const float*>(part),
                                                 static_cast<T*>(d_ref), V, n);
@@ -295,13 +299,13 @@ template <typename T>
 cudaError_t dispatch_c(int C, const void* ref, const void* src,
                        const void* rot, const void* trans, const void* depth,
                        const void* g, void* d_ref, void* part, void* d_src,
-                       int B, int V, int D, int H, int W, long long ref_bs,
-                       long long src_bs, const long long* ds, int dc, int cap,
+                       int B, int V, int D, int Hr, int Hs, int W, int y0,
+                       long long ref_bs, long long src_bs, const long long* ds, int dc, int cap,
                        unsigned long long* stats, cudaStream_t stream) {
   switch (C) {
-    case 8: return launch<T, 8>(ref, src, rot, trans, depth, g, d_ref, part, d_src, B, V, D, H, W, ref_bs, src_bs, ds, dc, cap, stats, stream);
-    case 16: return launch<T, 16>(ref, src, rot, trans, depth, g, d_ref, part, d_src, B, V, D, H, W, ref_bs, src_bs, ds, dc, cap, stats, stream);
-    case 32: return launch<T, 32>(ref, src, rot, trans, depth, g, d_ref, part, d_src, B, V, D, H, W, ref_bs, src_bs, ds, dc, cap, stats, stream);
+    case 8: return launch<T, 8>(ref, src, rot, trans, depth, g, d_ref, part, d_src, B, V, D, Hr, Hs, W, y0, ref_bs, src_bs, ds, dc, cap, stats, stream);
+    case 16: return launch<T, 16>(ref, src, rot, trans, depth, g, d_ref, part, d_src, B, V, D, Hr, Hs, W, y0, ref_bs, src_bs, ds, dc, cap, stats, stream);
+    case 32: return launch<T, 32>(ref, src, rot, trans, depth, g, d_ref, part, d_src, B, V, D, Hr, Hs, W, y0, ref_bs, src_bs, ds, dc, cap, stats, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -309,9 +313,10 @@ cudaError_t dispatch_c(int C, const void* ref, const void* src,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (ref, src, g and d_ref).  g is a
-// contiguous (B,V,D,H,W) cotangent, d_ref a contiguous (B,H,W,C) output,
-// part a (B,V,H,W,C) fp32 scratch that the kernel fills, d_src a
-// (B,V,H,W,C) fp32 buffer zeroed by the caller.  Strides in elements;
+// contiguous (B,V,D,Hr,W) cotangent, d_ref a contiguous (B,Hr,W,C) output,
+// part a (B,V,Hr,W,C) fp32 scratch that the kernel fills, d_src a
+// (B,V,Hs,W,C) fp32 buffer zeroed by the caller; the ref rows start at
+// row y0 (all rows: y0 = 0, Hr = Hs).  Strides in elements;
 // depth strides, dc and cap as for effi_warp_correlate.  stats, when not
 // null, gains the adds into the windows, into d_src directly, and of the
 // windows' flush.  Two launches on the stream; returns the first
@@ -320,8 +325,9 @@ extern "C" int effi_warp_correlate_bwd(const void* ref, const void* src,
                                        const void* rot, const void* trans,
                                        const void* depth, const void* g,
                                        void* d_ref, void* part, void* d_src,
-                                       int B, int V, int D, int H, int W,
-                                       int C, long long ref_bstride,
+                                       int B, int V, int D, int Hr, int Hs,
+                                       int W, int C, int y0,
+                                       long long ref_bstride,
                                        long long src_bstride,
                                        long long dep_sb, long long dep_sd,
                                        long long dep_sh, long long dep_sw,
@@ -332,12 +338,12 @@ extern "C" int effi_warp_correlate_bwd(const void* ref, const void* src,
   auto* st = static_cast<unsigned long long*>(stats);
   if (dtype == 0)
     return (int)dispatch_c<float>(C, ref, src, rot, trans, depth, g, d_ref,
-                                  part, d_src, B, V, D, H, W, ref_bstride,
-                                  src_bstride, ds, dc, cap, st, s);
+                                  part, d_src, B, V, D, Hr, Hs, W, y0,
+                                  ref_bstride, src_bstride, ds, dc, cap, st, s);
   if (dtype == 1)
     return (int)dispatch_c<__nv_bfloat16>(C, ref, src, rot, trans, depth, g,
-                                          d_ref, part, d_src, B, V, D, H, W,
-                                          ref_bstride, src_bstride, ds, dc,
-                                          cap, st, s);
+                                          d_ref, part, d_src, B, V, D, Hr, Hs,
+                                          W, y0, ref_bstride, src_bstride, ds,
+                                          dc, cap, st, s);
   return (int)cudaErrorInvalidValue;
 }

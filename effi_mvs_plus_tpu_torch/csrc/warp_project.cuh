@@ -51,7 +51,9 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&out)[C]
   }
 }
 
-// The ray of ref pixel (x, y) in one source view, formed once per pixel.
+// The ray of ref pixel (x, y) in one source view, formed once per pixel;
+// y is the pixel's row in the whole reference (a row block's kernels pass
+// y0 + their row, so the ray is the whole image's, bit for bit).
 struct Ray {
   float x, y, z, t0, t1, t2;
 };

@@ -4,10 +4,10 @@ Port of ``effi_mvs_plus_tpu/infer/engine.py``: the forward per batch of
 reference views, the final depth + confidence pulled to the host and
 written as PFM + cam text + preview jpg per reference view.  Runs on
 ``cuda`` unless the caller passes another device; the forward runs under
-``torch.inference_mode()``.  With ``shard_views`` in a multi-process run
-the ranks cooperate on every batch: each runs its block of the source
-views (``parallel/mesh.py``), every rank gets the whole maps, and rank 0
-writes them.  The JAX engine's in-process batch split (``_fit_devices``)
+``torch.inference_mode()``.  With ``shard_policy`` in a multi-process
+run the ranks cooperate on every batch: each runs its block of the
+source views or of the image rows (``parallel/mesh.py``), every rank
+gets the whole maps, and rank 0 writes them.  The JAX engine's in-process batch split (``_fit_devices``)
 becomes the CLIs' per-rank partition of scans and scenes.
 """
 
@@ -31,7 +31,7 @@ _STAGES = ("stage1", "stage2", "stage3")
 
 class InferenceEngine:
     def __init__(self, state_dict, cfg: EffiMVSConfig = EffiMVSConfig(),
-                 buckets=None, device=None, shard_views=False):
+                 buckets=None, device=None, shard_policy=None):
         """state_dict: the network's weights (``io.load_npz_checkpoint``
         or ``io.params_from_jax``), loaded strictly.  device: ``cuda``
         unless the caller names another; with no GPU the default raises.
@@ -43,16 +43,19 @@ class InferenceEngine:
         match the warp's out-of-image convention, so real-area depths are
         unaffected outside a receptive-field-wide edge band.
 
-        shard_views: in a multi-process run (``parallel.initialize``), put
-        every rank on the model axis (data = 1) and split the source views
-        of each batch over the ranks; every rank must then run the same
-        batches.  A single process ignores it."""
+        shard_policy: in a multi-process run (``parallel.initialize``), put
+        every rank on the model axis (data = 1) and split each batch over
+        the ranks by these model-axis layouts, a comma list as the train
+        CLI's ``--shard_policy`` (``parallel.make_policy``): ``views``
+        (the source views), ``spatial`` (the image rows) or
+        ``views,spatial``; every rank must then run the same batches.  A
+        single process ignores it."""
         self.model = freeze_kernel_weights(build_model(state_dict, cfg,
                                                        device))
         self._policy = None
-        if shard_views and D.world_size() > 1:
-            self._policy = par.ShardingPolicy(
-                D.global_mesh(model=D.world_size()))
+        if shard_policy and D.world_size() > 1:
+            self._policy = par.make_policy(
+                D.global_mesh(model=D.world_size()), shard_policy)
         self.device = next(self.model.parameters()).device
         self.cfg = cfg
         self.buckets = (sorted(buckets, key=lambda hw: hw[0] * hw[1])

@@ -8,8 +8,12 @@ channels-last, as in the JAX package.  ``train()`` switches BN to batch
 statistics and turns on the update block's two channel dropouts (p=0.1).
 ``CostRegNet`` and ``CSPBlock`` run inside ``parallel.depth_blocks``:
 under a depth policy their inputs are this rank's D-block of the volume
-and their 3-D layers exchange halos along D; without one nothing
-changes.
+and their 3-D layers exchange halos along D.  Inside
+``parallel.row_blocks`` under a spatial policy every block's input is
+this rank's block of image rows: each convolution exchanges halo rows
+(``nn.Conv``), the ConvGRU's kernel and the stem chain run on the block
+with a halo as deep as they reach and are cropped.  Without a policy
+nothing changes.
 """
 
 from __future__ import annotations
@@ -111,7 +115,13 @@ class FeatureNet(tnn.Module):
             return specs, cuda_conv.pack(specs, x.dtype)
         specs, packed = (_frozen(self, (i, x.dtype), fold_and_pack)
                          or (fold(), None))
-        return cuda_conv.conv_bn_relu_chain(x.contiguous(), specs, packed)
+        if par.row_parts() == 1:
+            return cuda_conv.conv_bn_relu_chain(x.contiguous(), specs, packed)
+        # a row block: as many halo rows as the chain has layers, none past
+        # the image's edges (where the kernel pads with zeros), then crop
+        xe, top = par.row_context(x, len(specs))
+        y = cuda_conv.conv_bn_relu_chain(xe.contiguous(), specs, packed)
+        return y.narrow(1, top, x.shape[1])
 
     def forward(self, x, stat_groups=1):
         fused = stem_chain_applies(x, self.training)
@@ -226,7 +236,17 @@ class ConvGRU(tnn.Module):
 
     def forward(self, h, x):
         packed = _frozen(self, h.dtype, lambda: cuda_gru.pack(self, h.dtype))
-        return cuda_gru.gru_step(h.contiguous(), x.contiguous(), self, packed)
+        if par.row_parts() == 1:
+            return cuda_gru.gru_step(h.contiguous(), x.contiguous(), self,
+                                     packed)
+        # a row block: q's 3x3 convolution of r*h reaches one row past the
+        # block, and r there two rows of [h, x]; the step runs on the block
+        # with two halo rows (none past the image's edges), then crops
+        hd = h.shape[-1]
+        hx, top = par.row_context(torch.cat([h, x], -1), 2)
+        out = cuda_gru.gru_step(hx[..., :hd].contiguous(),
+                                hx[..., hd:].contiguous(), self, packed)
+        return out.narrow(1, top, h.shape[1])
 
 
 class DepthHead(tnn.Module):

@@ -44,8 +44,17 @@ it warps that block of every view (the stage-1 entropy takes its max and
 sums over D from the group); with views, it keeps its block of the
 summed volume.  ``CostRegNet`` and the CSP blocks run on the block, and
 their outputs, with the stage-1 similarity, are gathered along D
-(``par.gather_depths``).  The rest runs replicated.  Without a policy
-the hooks are identities.
+(``par.gather_depths``).  The rest runs replicated.  Under a spatial
+policy each model rank runs every module on its block of image rows
+(``par.image_rows``, ``par.row_blocks``): the FPN and the context net
+on its rows of the images, the warps on its rows of the reference
+against the whole source features (gathered along H, ``par.gather_rows``;
+the kernels take the block's first row ``y0``), ``PixelwiseNet``,
+``CostRegNet``, the CSP and update blocks with row halos; the 13 depth
+maps and the confidence are gathered along H at the end.  With views as
+well (``views,spatial``) the FPN, the warps and ``PixelwiseNet`` run
+this rank's views over all rows, and the rank keeps its rows of the view
+sums.  Without a policy the hooks are identities.
 """
 
 from __future__ import annotations
@@ -156,6 +165,14 @@ class EffiMVS(tnn.Module):
         Returns {'depth': [13 x (B,h,w)] coarsest->finest actual depths
         (fp32), 'photometric_confidence': (B, H/2, W/2)}.
         """
+        with par.image_rows(imgs.shape[2]), par.row_blocks():
+            depths, conf = self._forward(imgs, proj_matrices, depth_values)
+            *depths, conf = par.gather_rows(*depths, conf, axis=1)
+        return {"depth": depths, "photometric_confidence": conf}
+
+    def _forward(self, imgs, proj_matrices, depth_values):
+        """The forward on this rank's rows (all of them without spatial
+        sharding): (13 depth maps, confidence)."""
         cfg = self.cfg
         B, V, H, W, _ = imgs.shape
         dt = cfg.compute_dtype
@@ -183,14 +200,30 @@ class EffiMVS(tnn.Module):
             return torch.cat([x[:, :1], x[:, 1 + start:1 + stop]], 1)
         imgs_own = own_views(imgs)
         Vo = imgs_own.shape[1]
+        # under spatial sharding, this rank's rows; with views as well, the
+        # views part (FPN, warps, PixelwiseNet) runs on all rows and keeps
+        # its rows of the view sums (``keep``)
+        views_split = (start, stop) != (0, V - 1)
+        rows = par.row_slice(H)
+        if not views_split:
+            imgs_own = imgs_own[:, :, rows]
+
+        def keep(x, axis):
+            if not views_split:
+                return x
+            sl = [slice(None)] * x.dim()
+            sl[axis] = par.row_slice(x.shape[axis])
+            return x[tuple(sl)]
 
         # feature extraction: the views through the FPN in one batch, with
         # per-view BN statistics in train mode
-        with par.view_stats(V - 1, has_ref=True):
-            feats = self.feature(imgs_own.reshape(B * Vo, H, W, 3),
-                                 stat_groups=Vo)
+        with par.view_stats(V - 1, has_ref=True), \
+                par.row_blocks(not views_split):
+            feats = self.feature(
+                imgs_own.reshape(B * Vo, *imgs_own.shape[2:]),
+                stat_groups=Vo)
         feats = {k: v.reshape(B, Vo, *v.shape[1:]) for k, v in feats.items()}
-        cnet = self.cnet_depth(imgs[:, 0])
+        cnet = self.cnet_depth(imgs[:, 0, rows])
 
         hiddens, contexts = [], []
         for s in range(cfg.num_stage):
@@ -215,6 +248,19 @@ class EffiMVS(tnn.Module):
             ref_fea = f[:, 0]
             interval_s = depth_interval * cfg.depth_intervals_ratio[s]
             rots, trs = _relative_projections(P)
+            # the warps: ref rows y0 .. y0 + h - 1 against the whole source
+            # features (a row block against the gathered sources under
+            # spatial sharding)
+            src = f[:, 1:]
+            y0 = 0
+            if not views_split:
+                (src,) = par.gather_rows(src, axis=2)
+                y0 = par.row_slice(src.shape[2]).start or 0
+
+            def warp(depth, ref_fea=ref_fea, src=src, rots=rots, trs=trs,
+                     y0=y0):
+                return cuda_warp.warp_correlate_views(ref_fea, src, rots, trs,
+                                                      depth, y0)
 
             # the hypotheses this rank warps, and its block of them kept
             # after the view sums (all of them without depth sharding)
@@ -226,11 +272,10 @@ class EffiMVS(tnn.Module):
                 drs = geometry.depth_range_samples_global(
                     depth_values, cfg.ndepths[0], 1, 1)
                 depth_hyps = (1.0 / drs).expand(B, cfg.ndepths[0], h, w)
-                sims = cuda_warp.warp_correlate_views(
-                    ref_fea, f[:, 1:], rots, trs,
-                    depth_hyps[:, pre])                      # (B,Vo-1,D,h,w)
+                sims = warp(depth_hyps[:, pre])              # (B,Vo-1,D,h,w)
                 entropy = _sweep_entropy(sims)
-                with par.view_stats(V - 1, has_ref=False):
+                with par.view_stats(V - 1, has_ref=False), \
+                        par.row_blocks(not views_split):
                     vw = self.PixelwiseNet(
                         entropy.reshape(B * (Vo - 1), h, w, 1).to(dt),
                         stat_groups=Vo - 1)
@@ -239,13 +284,14 @@ class EffiMVS(tnn.Module):
                 sim_sum, w_sum = par.sum_views(
                     torch.sum(sims * vw_, dim=1),            # (B,D,h,w)
                     torch.sum(vw_, dim=1))                   # (B,1,h,w)
-                similarity = (sim_sum / (w_sum + 1e-6))[:, post][..., None]
+                similarity = keep(sim_sum / (w_sum + 1e-6),
+                                  2)[:, post][..., None]
 
                 prob_pre, _ = self.cost_regularization(similarity.to(dt))
                 reg_volume, cur_volume = par.gather_depths(
                     prob_pre.float(), similarity[..., 0].float())
                 prob = torch.softmax(reg_volume, dim=1)
-                init_depth = depth_regression(prob, depth_hyps)
+                init_depth = depth_regression(prob, keep(depth_hyps, 2))
                 conf = photometric_confidence(prob)
                 photometric_confidence_map = _repeat2x_hw(
                     _repeat2x_hw(conf, 1, 2), 1, 2)          # x4 nearest
@@ -258,17 +304,21 @@ class EffiMVS(tnn.Module):
                 # ----- dynamic cost volume around the current depth -----
                 cur_depth = depth_predictions[-1].detach()
                 view_weights = _repeat2x_hw(view_weights, 2, 3)
+                # the depths the warps take: all rows where the views part
+                # runs on all rows (views,spatial), else this rank's
+                (warp_depth,) = (par.gather_rows(cur_depth, axis=1)
+                                 if views_split else (cur_depth,))
                 drs_disp = geometry.depth_range_samples_local(
-                    1.0 / cur_depth, cfg.ndepths[s], _bshape(interval_s, 3))
+                    1.0 / warp_depth, cfg.ndepths[s], _bshape(interval_s, 3))
                 depth_samples = 1.0 / drs_disp               # (B,8,h,w)
 
-                sims = cuda_warp.warp_correlate_views(
-                    ref_fea, f[:, 1:], rots, trs, depth_samples[:, pre])
+                sims = warp(depth_samples[:, pre])
                 vw_ = view_weights[:, :, None]
                 sim_sum, w_sum = par.sum_views(torch.sum(sims * vw_, dim=1),
                                                torch.sum(vw_, dim=1))
-                # (B,8,h,w,1), or this rank's D-block of it
-                fresh = (sim_sum / (w_sum + 1e-6))[:, post][..., None]
+                # (B,8,h,w,1), or this rank's D-block or row block of it
+                fresh = keep(sim_sum / (w_sum + 1e-6), 2)[:, post][..., None]
+                depth_samples = keep(depth_samples, 2)
 
                 new_dmax = depth_samples[:, 0:1]             # (B,1,h,w)
                 new_dmin = depth_samples[:, -1:]
@@ -318,5 +368,4 @@ class EffiMVS(tnn.Module):
                                      mask.float(), cfg.feat_ratio[s])
             depth_predictions.append(scale_inv_depth(inv_up)[1])
 
-        return {"depth": depth_predictions,
-                "photometric_confidence": photometric_confidence_map}
+        return depth_predictions, photometric_confidence_map

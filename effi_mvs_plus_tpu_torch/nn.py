@@ -26,12 +26,16 @@ shipped state dict.
   over the data group first, so the statistics are the global batch's;
   inside ``parallel.view_stats`` the running update gathers every view's
   statistics from the model group; inside ``parallel.depth_blocks``
-  under a depth policy they are all-reduced over the model group too,
-  whose ranks hold the other D-blocks of the volume.
+  under a depth policy, and inside ``parallel.row_blocks`` under a
+  spatial one, they are all-reduced over the model group too, whose
+  ranks hold the other D-blocks of the volume or row blocks of the
+  tensor.
 * 3-D ``Conv`` inside ``parallel.depth_blocks`` under a depth policy —
   the input is this rank's D-block of a volume; the convolution runs on
   it with the halo planes of the neighbouring ranks in place of its
-  D-padding (``_conv_on_depth_block``).
+  D-padding (``_conv_on_block``).  Every ``Conv`` inside
+  ``parallel.row_blocks`` under a spatial policy does the same along H
+  with the halo rows of the ranks above and below.
 * ``softmax`` — op by op as XLA computes ``jax.nn.softmax``, each step
   rounded to the input's dtype, where ``torch.softmax`` rounds once at
   the end.  ``sigmoid`` — the same in bf16; ``torch.sigmoid`` in fp32,
@@ -39,7 +43,9 @@ shipped state dict.
 * ``ChannelDropout`` — Dropout2d: one keep/drop per (sample, channel),
   scaled by 1/(1-p), in train mode only; its random draws come from the
   module's ``generator`` (``use_generator`` sets it model-wide); a data
-  rank draws the global batch's mask and keeps its own rows.
+  rank draws the global batch's mask and keeps its own rows, and every
+  model rank draws the same mask (the same generator state, and a mask
+  shape that the rows a rank holds do not change).
 
 The modules below hold parameters under the reference state-dict names
 (``conv.weight``, ``bn.running_mean`` ...) with torch's default
@@ -138,11 +144,11 @@ def batch_norm(x, bn, groups=1):
     xf = xg.to(torch.promote_types(xg.dtype, torch.float32))  # >= fp32
     axes = (0,) + tuple(range(2, xg.dim() - 1))
     # sums over this rank's rows, then over the data group's, then, on a
-    # D-block, over the model group's (identities without a policy): the
-    # global batch's whole volume
-    n = (xg.numel() // (g * xg.shape[-1]) * par.data_parallel()
-         * par.depth_parts())
-    sums = par.reduce_depth(par.reduce_data(
+    # D-block or a row block, over the model group's (identities without a
+    # policy): the global batch's whole volume
+    n = par.block_count(xg.numel() // (g * xg.shape[-1])
+                        * par.data_parallel(), x.shape[-3])
+    sums = par.reduce_blocks(par.reduce_data(
         torch.stack([xf.sum(axes), (xf * xf).sum(axes)])))
     mean = sums[0] / n                                     # (g, C)
     var = sums[1] / n - mean * mean
@@ -179,7 +185,9 @@ class Conv(nn.Module):
 
     def forward(self, x):
         if self.nd == 3 and par.depth_parts() > 1:
-            return _conv_on_depth_block(self, x)
+            return _conv_on_block(self, x, 1, par.depth_halo)
+        if par.row_parts() > 1:
+            return _conv_on_block(self, x, x.dim() - 3, par.row_halo)
         if self.transpose:
             return conv_transpose3d(x, self.weight, self.bias, self.stride,
                                     self.padding, self.output_padding)
@@ -187,43 +195,48 @@ class Conv(nn.Module):
         return fn(x, self.weight, self.bias, self.stride, self.padding)
 
 
-def _triple(v):
-    return (v,) * 3 if isinstance(v, int) else tuple(v)
+def _per_dim(v, nd):
+    return (v,) * nd if isinstance(v, int) else tuple(v)
 
 
-def _conv_on_depth_block(conv, x):
-    """The 3-D ``conv`` on this rank's D-block x (B, Dl, H, W, C) of a
-    volume whose other blocks the model group's ranks hold, in order.
-    The block gains the planes the kernel reaches past its edges from the
-    neighbouring blocks (``parallel.depth_halo``, zeros past the volume's
-    ends, where the whole volume has its zero padding), the convolution
-    runs on it without D-padding, and the result is cropped to this
-    rank's block of the output: Dl/s planes for a stride-s convolution,
-    s·Dl for its transpose, so that the blocks of every level of the
-    U-Net line up.  A stride-2 layer's block must start on an even plane
-    (Dl even); its transpose needs one plane from the right neighbour
-    only, a stride-1 layer one from each side."""
-    k = conv.weight.shape[2]
-    (s, sh, sw), (p, ph, pw) = _triple(conv.stride), _triple(conv.padding)
-    op, oph, opw = _triple(conv.output_padding)
-    Dl = x.shape[1]
-    if 2 * p != k - 1 or (op != s - 1 if conv.transpose else Dl % s):
+def _conv_on_block(conv, x, axis, halo):
+    """``conv`` on this rank's block x of a tensor along ``axis`` (D of a
+    volume (B, Dl, H, W, C), or H of (B, Hl, W, C) and (B, D, Hl, W, C)),
+    whose other blocks the model group's ranks hold, in order.  The block
+    gains the entries the kernel reaches past its edges from the
+    neighbouring blocks (``halo``: ``parallel.depth_halo`` or
+    ``row_halo``, zeros past the whole tensor's ends, where it has its
+    zero padding), the convolution runs on it without padding along the
+    axis, and the result is cropped to this rank's block of the output:
+    n/s entries for a stride-s convolution, s·n for its transpose, so
+    that the blocks of every level line up.  A stride-2 layer's block
+    must start on an even entry (n even); its transpose needs one entry
+    from the right neighbour only, a stride-1 layer k//2 from each
+    side."""
+    nd, i = conv.nd, axis - 1            # i: the axis among the kernel's
+    k = conv.weight.shape[2 + i]
+    strides, pads = _per_dim(conv.stride, nd), _per_dim(conv.padding, nd)
+    opads = _per_dim(conv.output_padding, nd)
+    s, p, op = strides[i], pads[i], opads[i]
+    n = x.shape[axis]
+    if 2 * p != k - 1 or (op != s - 1 if conv.transpose else n % s):
         raise ValueError(
-            f"a 3-D {'transpose ' if conv.transpose else ''}convolution "
-            f"(k {k}, stride {s}, padding {p}, output padding {op} along D) "
-            f"does not map a block of {Dl} planes onto a block")
+            f"a {nd}-D {'transpose ' if conv.transpose else ''}convolution "
+            f"(k {k}, stride {s}, padding {p}, output padding {op} along "
+            f"axis {axis}) does not map a block of {n} onto a block")
+    pads = pads[:i] + (0,) + pads[i + 1:]
     if conv.transpose:
         lo, hi = (k - 1 - p) // s, (p - 1) // s + 1
-        start, n = p + lo * s, Dl * s
-        y = conv_transpose3d(par.depth_halo(x, lo, hi), conv.weight,
-                             conv.bias, (s, sh, sw), (0, ph, pw),
-                             (0, oph, opw))
+        start, m = p + lo * s, n * s
+        y = conv_transpose3d(halo(x, lo, hi), conv.weight, conv.bias,
+                             strides, pads, opads[:i] + (0,) + opads[i + 1:])
     else:
         lo, hi = p, k - s - p
-        start, n = 0, Dl // s
-        y = conv3d(par.depth_halo(x, lo, hi), conv.weight, conv.bias,
-                   (s, sh, sw), (0, ph, pw))
-    return y[:, start:start + n]
+        start, m = 0, n // s
+        fn = conv2d if nd == 2 else conv3d
+        y = fn(halo(x, lo, hi) if lo or hi else x, conv.weight, conv.bias,
+               strides, pads)
+    return y.narrow(axis, start, m)
 
 
 class BatchNorm(nn.Module):

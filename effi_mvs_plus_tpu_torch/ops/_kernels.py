@@ -40,10 +40,11 @@ _L = ctypes.c_longlong
 # C entry points and their argument types (csrc/*.cu, extern "C")
 SIGNATURES = {
     "effi_warp_correlate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _L, _L, _L, _L, _L, _L, _I, _I, _P, _I, _P],
+                            _I, _I, _L, _L, _L, _L, _L, _L, _I, _I, _P, _I,
+                            _P],
     "effi_warp_correlate_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _L, _L, _L, _L, _L, _L, _I,
-                                _I, _P, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                                _L, _I, _I, _P, _I, _P],
     "effi_conv_gru": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "effi_conv_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }

@@ -76,14 +76,15 @@ def window_plan(kernel, C, dtype, D):
     raise ValueError(f"unknown kernel {kernel!r}")
 
 
-def _views_torch(ref_fea, src_feas, rots, transs, depth):
+def _views_torch(ref_fea, src_feas, rots, transs, depth, y0=0):
     """Plain PyTorch version: one ``warp.warp_correlate`` per source view.
-    ref_fea (B,H,W,C), src_feas (B,V,H,W,C), rots (B,V,3,3), transs
-    (B,V,3), depth (B,D,H,W) -> (B,V,D,H,W)."""
+    ref_fea (B,H,W,C) rows y0 .. y0 + H - 1 of the reference, src_feas
+    (B,V,Hs,W,C), rots (B,V,3,3), transs (B,V,3), depth (B,D,H,W) ->
+    (B,V,D,H,W)."""
     V = src_feas.shape[1]
     return torch.stack(
         [warp.warp_correlate(ref_fea, src_feas[:, v], rots[:, v],
-                             transs[:, v], depth, 1)[..., 0]
+                             transs[:, v], depth, 1, y0)[..., 0]
          for v in range(V)], dim=1)
 
 
@@ -101,11 +102,11 @@ def _check_aligned(name, t, inner):
         raise ValueError(f"{name}: must be 16-byte aligned per batch item")
 
 
-def _check_inputs(ref_fea, src_feas, rots, transs, depth):
+def _check_inputs(ref_fea, src_feas, rots, transs, depth, y0):
     """Raise on what the kernels do not take; returns rots and transs as
     the contiguous fp32 tensors the kernels read."""
     B, H, W, C = ref_fea.shape
-    V = src_feas.shape[1]
+    V, Hs = src_feas.shape[1], src_feas.shape[2]
     D = depth.shape[1]
     dev = ref_fea.device
     if ref_fea.dtype not in _DTYPES or src_feas.dtype != ref_fea.dtype:
@@ -113,9 +114,11 @@ def _check_inputs(ref_fea, src_feas, rots, transs, depth):
                          f"{ref_fea.dtype} / {src_feas.dtype}")
     if C not in _CHANNELS:
         raise ValueError(f"channels must be one of {_CHANNELS}, got {C}")
-    if tuple(src_feas.shape) != (B, V, H, W, C):
-        raise ValueError(f"src_feas {tuple(src_feas.shape)} does not match "
-                         f"ref_fea {tuple(ref_fea.shape)}")
+    if tuple(src_feas.shape) != (B, V, Hs, W, C) or not (
+            0 <= y0 and y0 + H <= Hs):
+        raise ValueError(f"src_feas {tuple(src_feas.shape)} does not hold "
+                         f"rows {y0} .. {y0 + H - 1} of ref_fea "
+                         f"{tuple(ref_fea.shape)}")
     if tuple(depth.shape) != (B, D, H, W) or depth.dtype != torch.float32:
         raise ValueError(f"depth must be float32 (B,D,H,W)=({B},D,{H},{W}), "
                          f"got {depth.dtype} {tuple(depth.shape)}")
@@ -125,8 +128,8 @@ def _check_inputs(ref_fea, src_feas, rots, transs, depth):
                     ("transs", transs)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, ref_fea on {dev}")
-    if H >= 2 ** 15 or W >= 2 ** 15:
-        raise ValueError(f"maps must be under 32768 a side, got {H}x{W}")
+    if Hs >= 2 ** 15 or W >= 2 ** 15:
+        raise ValueError(f"maps must be under 32768 a side, got {Hs}x{W}")
     _check_aligned("ref_fea", ref_fea, 3)
     _check_aligned("src_feas", src_feas, 4)
     return (rots.to(torch.float32).contiguous(),
@@ -144,13 +147,14 @@ def _stats_ptr(stats, n, dev):
     return stats.data_ptr()
 
 
-def _views_cuda(ref_fea, src_feas, rots, transs, depth, stats=None):
-    """K1.  ``stats``, an int64 tensor of 2 on the card, gains the taps
-    read from the windows and from device memory."""
+def _views_cuda(ref_fea, src_feas, rots, transs, depth, stats=None, y0=0):
+    """K1 on ref rows y0 .. y0 + H - 1 against the whole source maps.
+    ``stats``, an int64 tensor of 2 on the card, gains the taps read from
+    the windows and from device memory."""
     global launches
-    rots, transs = _check_inputs(ref_fea, src_feas, rots, transs, depth)
+    rots, transs = _check_inputs(ref_fea, src_feas, rots, transs, depth, y0)
     B, H, W, C = ref_fea.shape
-    V, D = src_feas.shape[1], depth.shape[1]
+    V, Hs, D = src_feas.shape[1], src_feas.shape[2], depth.shape[1]
     dev = ref_fea.device
     dc, cap = window_plan("fwd", C, ref_fea.dtype, D)
     out = torch.empty((B, V, D, H, W), dtype=ref_fea.dtype, device=dev)
@@ -159,7 +163,7 @@ def _views_cuda(ref_fea, src_feas, rots, transs, depth, stats=None):
         status = lib.effi_warp_correlate(
             ref_fea.data_ptr(), src_feas.data_ptr(), rots.data_ptr(),
             transs.data_ptr(), depth.data_ptr(), out.data_ptr(),
-            B, V, D, H, W, C, ref_fea.stride(0), src_feas.stride(0),
+            B, V, D, H, Hs, W, C, y0, ref_fea.stride(0), src_feas.stride(0),
             *depth.stride(), dc, cap, _stats_ptr(stats, 2, dev),
             _DTYPES[ref_fea.dtype], _kernels.stream_of(out))
     _kernels.check(status, "warp_correlate")
@@ -167,15 +171,16 @@ def _views_cuda(ref_fea, src_feas, rots, transs, depth, stats=None):
     return out
 
 
-def _views_bwd_cuda(ref_fea, src_feas, rots, transs, depth, g, stats=None):
-    """K3: (d_ref (B,H,W,C), d_src (B,V,H,W,C)) in the features' dtype for
-    the cotangent g (B,V,D,H,W) of ``_views_cuda``'s output.  ``stats``,
-    an int64 tensor of 3 on the card, gains the adds into the windows,
-    into d_src directly and of the windows' flush."""
+def _views_bwd_cuda(ref_fea, src_feas, rots, transs, depth, g, stats=None,
+                    y0=0):
+    """K3: (d_ref (B,H,W,C), d_src (B,V,Hs,W,C)) in the features' dtype
+    for the cotangent g (B,V,D,H,W) of ``_views_cuda``'s output (ref rows
+    from y0).  ``stats``, an int64 tensor of 3 on the card, gains the adds
+    into the windows, into d_src directly and of the windows' flush."""
     global bwd_launches
-    rots, transs = _check_inputs(ref_fea, src_feas, rots, transs, depth)
+    rots, transs = _check_inputs(ref_fea, src_feas, rots, transs, depth, y0)
     B, H, W, C = ref_fea.shape
-    V, D = src_feas.shape[1], depth.shape[1]
+    V, Hs, D = src_feas.shape[1], src_feas.shape[2], depth.shape[1]
     dev = ref_fea.device
     if tuple(g.shape) != (B, V, D, H, W) or g.device != dev:
         raise ValueError(f"cotangent {tuple(g.shape)} on {g.device} does not "
@@ -184,14 +189,14 @@ def _views_bwd_cuda(ref_fea, src_feas, rots, transs, depth, g, stats=None):
     g = g.to(ref_fea.dtype).contiguous()
     d_ref = torch.empty((B, H, W, C), dtype=ref_fea.dtype, device=dev)
     part = torch.empty((B, V, H, W, C), dtype=torch.float32, device=dev)
-    d_src = torch.zeros((B, V, H, W, C), dtype=torch.float32, device=dev)
+    d_src = torch.zeros((B, V, Hs, W, C), dtype=torch.float32, device=dev)
     lib = _kernels.library()
     with torch.cuda.device(dev):
         status = lib.effi_warp_correlate_bwd(
             ref_fea.data_ptr(), src_feas.data_ptr(), rots.data_ptr(),
             transs.data_ptr(), depth.data_ptr(), g.data_ptr(),
             d_ref.data_ptr(), part.data_ptr(), d_src.data_ptr(),
-            B, V, D, H, W, C, ref_fea.stride(0), src_feas.stride(0),
+            B, V, D, H, Hs, W, C, y0, ref_fea.stride(0), src_feas.stride(0),
             *depth.stride(), dc, cap, _stats_ptr(stats, 3, dev),
             _DTYPES[ref_fea.dtype], _kernels.stream_of(d_ref))
     _kernels.check(status, "warp_correlate_bwd")
@@ -204,28 +209,33 @@ class _WarpCorrelate(torch.autograd.Function):
     it is: the stage-1 sweep stays an expanded view."""
 
     @staticmethod
-    def forward(ctx, ref_fea, src_feas, rots, transs, depth):
+    def forward(ctx, ref_fea, src_feas, rots, transs, depth, y0):
         ctx.save_for_backward(ref_fea, src_feas, rots, transs, depth)
-        return _views_cuda(ref_fea, src_feas, rots, transs, depth)
+        ctx.y0 = y0
+        return _views_cuda(ref_fea, src_feas, rots, transs, depth, y0=y0)
 
     @staticmethod
     def backward(ctx, g):
-        d_ref, d_src = _views_bwd_cuda(*ctx.saved_tensors, g)
-        return d_ref, d_src, None, None, None
+        d_ref, d_src = _views_bwd_cuda(*ctx.saved_tensors, g, y0=ctx.y0)
+        return d_ref, d_src, None, None, None, None
 
 
-def warp_correlate_views(ref_fea, src_feas, rots, transs, depth):
+def warp_correlate_views(ref_fea, src_feas, rots, transs, depth, y0=0):
     """Correlation of the ref features with every source view warped to
     each depth hypothesis (G=1).
 
-    ref_fea (B,H,W,C), src_feas (B,V,H,W,C), rots (B,V,3,3), transs
+    ref_fea (B,H,W,C), src_feas (B,V,Hs,W,C), rots (B,V,3,3), transs
     (B,V,3), depth (B,D,H,W) actual depths -> (B,V,D,H,W) in the
-    features' dtype.  ``depth`` may be an expanded view (the stage-1
-    sweep); the kernel reads it through its strides.
+    features' dtype.  ``ref_fea`` and ``depth`` hold rows y0 .. y0 + H - 1
+    of the reference (a row block under spatial sharding), whose rays
+    project into the whole source maps; all rows: y0 = 0, H = Hs.
+    ``depth`` may be an expanded view (the stage-1 sweep); the kernel
+    reads it through its strides.
     """
     if ref_fea.device.type == "cuda":
-        return _WarpCorrelate.apply(ref_fea, src_feas, rots, transs, depth)
+        return _WarpCorrelate.apply(ref_fea, src_feas, rots, transs, depth,
+                                    y0)
     if ref_fea.device.type != "cpu":
         raise ValueError(f"unsupported device {ref_fea.device}")
-    return _views_torch(ref_fea, src_feas, rots, transs,
-                        depth).to(ref_fea.dtype)
+    return _views_torch(ref_fea, src_feas, rots, transs, depth,
+                        y0).to(ref_fea.dtype)

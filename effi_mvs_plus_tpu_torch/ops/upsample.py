@@ -6,18 +6,26 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from effi_mvs_plus_tpu_torch.parallel import mesh as par
+
 
 def convex_upsample(value, mask, ratio):
     """Upsample (B,H,W) -> (B, ratio*H, ratio*W) by a learned convex
     combination over each coarse pixel's 3x3 neighbourhood (zero padded).
 
     mask: (B, H, W, 9*ratio*ratio) raw logits, channel layout [k, ry, rx]
-    with k the neighbourhood index in row-major (dy, dx) order.
+    with k the neighbourhood index in row-major (dy, dx) order.  Inside
+    ``parallel.row_blocks`` under a spatial policy, value and mask are
+    this rank's row block, and the row above and below come from the
+    neighbouring ranks (zeros past the image's edges).
     """
     B, H, W = value.shape
     r = ratio
     m = torch.softmax(mask.reshape(B, H, W, 9, r, r), dim=3)
-    p = F.pad(value, (1, 1, 1, 1))
+    if par.row_parts() > 1:
+        p = F.pad(par.row_halo(value[..., None], 1, 1)[..., 0], (1, 1))
+    else:
+        p = F.pad(value, (1, 1, 1, 1))
     nb = torch.stack([p[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
                       for dy in (-1, 0, 1) for dx in (-1, 0, 1)],
                      dim=-1)                                  # (B,H,W,9)

@@ -48,23 +48,25 @@ def bilinear_gather(fea, px, py):
     return out.to(fea.dtype)
 
 
-def homo_warp(src_fea, rot, trans, depth):
-    """src_fea: (B, H, W, C); rot: (B,3,3); trans: (B,3);
-    depth: (B, D, H, W) actual depths.  Returns (B, D, H, W, C)."""
-    B, H, W, C = src_fea.shape
-    D = depth.shape[1]
-    px, py = geometry.project_to_src(rot, trans, depth, H, W)
+def homo_warp(src_fea, rot, trans, depth, y0=0):
+    """src_fea: (B, Hs, W, C); rot: (B,3,3); trans: (B,3);
+    depth: (B, D, H, W) actual depths of ref rows y0 .. y0 + H - 1 (all
+    of them: y0 = 0, H = Hs).  Returns (B, D, H, W, C)."""
+    B, _, W, C = src_fea.shape
+    D, H = depth.shape[1], depth.shape[2]
+    px, py = geometry.project_to_src(rot, trans, depth, H, W, y0)
     out = bilinear_gather(src_fea, px.reshape(B, -1), py.reshape(B, -1))
     return out.reshape(B, D, H, W, C)
 
 
-def warp_correlate(ref_fea, src_fea, rot, trans, depth, groups=1):
+def warp_correlate(ref_fea, src_fea, rot, trans, depth, groups=1, y0=0):
     """Mean over channels-per-group of (warped_src * ref) at every depth
-    hypothesis.  ref_fea, src_fea: (B, H, W, C); depth: (B, D, H, W).
-    Returns (B, D, H, W, G)."""
+    hypothesis.  ref_fea: (B, H, W, C) rows y0 .. y0 + H - 1 of the
+    reference; src_fea: (B, Hs, W, C) the whole source; depth:
+    (B, D, H, W).  Returns (B, D, H, W, G)."""
     B, H, W, C = ref_fea.shape
     D = depth.shape[1]
-    warped = homo_warp(src_fea, rot, trans, depth)         # (B,D,H,W,C)
+    warped = homo_warp(src_fea, rot, trans, depth, y0)     # (B,D,H,W,C)
     w = warped.reshape(B, D, H, W, groups, C // groups)
     r = ref_fea.reshape(B, 1, H, W, groups, C // groups)
     return torch.mean(w * r, dim=-1)

@@ -16,9 +16,15 @@ engine's maps must equal the unsharded engine's within the fp32 map
 tolerance: max depth error under 0.5% of the map's range plus 0.5 mm,
 confidence within 5e-3.
 
-The layouts (``LAYOUTS``) are the data axis, the source views and the
-cost volume's hypotheses over the model axis (``depth``, and
-``views_depth``, the JAX CLI's default), and their combinations.
+The layouts (``LAYOUTS``) are the data axis, the source views, the
+cost volume's hypotheses (``depth``, and ``views_depth``, the JAX CLI's
+default) and the image rows (``spatial``, ``views_spatial``) over the
+model axis, and their combinations.  A layout may take a batch of its
+own height (``ROW_HEIGHTS``: four row blocks need more rows than the
+gate's 64, and ``spatial_uneven`` splits 96 rows as 32 + 64), held
+against the single process's step on that batch (``references``).
+``engine`` and ``engine_spatial`` are the view- and row-sharded engines'
+maps.
 
 ``spawn`` runs the layouts in ``world`` processes (``torch.multiprocessing``
 with the spawn start method, rendezvous on ``tcp://localhost``), each
@@ -29,6 +35,7 @@ that share one GPU use gloo on CUDA tensors (NCCL refuses them).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import socket
@@ -47,7 +54,18 @@ LAYOUTS = {"data": (2, 1, "views"), "views": (1, 2, "views"),
            "data_views": (2, 2, "views"), "depth": (1, 2, "depth"),
            "views_depth": (1, 2, "views,depth"),
            "data_views_depth": (2, 2, "views,depth"),
-           "depth4": (1, 4, "depth")}
+           "depth4": (1, 4, "depth"), "spatial": (1, 2, "spatial"),
+           "views_spatial": (1, 2, "views,spatial"),
+           "data_spatial": (2, 2, "spatial"),
+           "spatial4": (1, 4, "spatial"),
+           "spatial_uneven": (1, 2, "spatial")}
+# image rows of the layouts that take a batch of their own height: 128
+# rows give four ranks 32 each (stage 1: 4 + 4 + 4 + 4), 96 rows two
+# unequal blocks (stage 1: 4 + 8)
+ROW_HEIGHTS = {"spatial4": 128, "spatial_uneven": 96}
+# the engines of the model-axis layouts: name -> InferenceEngine's
+# shard_policy
+ENGINES = {"engine": "views", "engine_spatial": "spatial"}
 
 
 def rig(B, V, H, W):
@@ -97,10 +115,65 @@ def rows(batch, start, stop):
     return batch[start:stop]
 
 
-def train_step(state, cfg, batch, device, policy=None, lr=1e-3, seed=0):
+@contextlib.contextmanager
+def memory_phases(model, device, out):
+    """Fill ``out`` with where one training step's memory goes:
+    ``saved_gib``, the bytes the forward saves for the backward by the
+    model's top-level module that saved them (a storage counted once, at
+    its first save); on the card also ``forward_peak_gib`` and
+    ``after_forward_gib`` (the peak and the memory in use when the
+    backward starts, at its first use of a saved tensor) and
+    ``step_peak_gib`` (the whole step's peak), from the peak reset by the
+    caller.  The hooks return every tensor as given."""
+    cuda = device.type == "cuda"
+    seen, saved, where = set(), {}, ["other"]
+    forward = [True]
+
+    def enter(name):
+        return lambda mod, args: where.append(name)
+
+    def leave(mod, args, output):
+        where.pop()
+
+    handles = []
+    for name, child in model.named_children():
+        handles += [child.register_forward_pre_hook(enter(name)),
+                    child.register_forward_hook(leave)]
+
+    def pack(t):
+        st = t.untyped_storage()
+        if forward[0] and (st.data_ptr(), st.device) not in seen:
+            seen.add((st.data_ptr(), st.device))
+            saved[where[-1]] = saved.get(where[-1], 0) + st.nbytes()
+        return t
+
+    def unpack(t):
+        if forward[0]:
+            forward[0] = False
+            if cuda:
+                out["forward_peak_gib"] = (
+                    torch.cuda.max_memory_allocated(device) / 2 ** 30)
+                out["after_forward_gib"] = (
+                    torch.cuda.memory_allocated(device) / 2 ** 30)
+        return t
+
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            yield
+    finally:
+        for h in handles:
+            h.remove()
+    out["saved_gib"] = {k: v / 2 ** 30 for k, v in sorted(
+        saved.items(), key=lambda kv: -kv[1])}
+    if cuda:
+        out["step_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+
+
+def train_step(state, cfg, batch, device, policy=None, lr=1e-3, seed=0,
+               memory=None):
     """One ``make_train_step`` step from ``state`` on this rank's rows of
     the global ``batch``; (loss, state dict, the gradients AdamW took),
-    on the CPU."""
+    on the CPU.  ``memory``: a dict that ``memory_phases`` fills."""
     from effi_mvs_plus_tpu_torch.models import EffiMVS
     from effi_mvs_plus_tpu_torch.train import trainer as T
     from effi_mvs_plus_tpu_torch.train.optim import make_optimizer
@@ -114,15 +187,19 @@ def train_step(state, cfg, batch, device, policy=None, lr=1e-3, seed=0):
         n = batch["imgs"].shape[0] // policy.mesh.data
         batch = rows(batch, n * policy.mesh.data_rank,
                      n * (policy.mesh.data_rank + 1))
-    loss = float(step(batch)["loss"])
+    with memory_phases(model, torch.device(device), memory if memory
+                       is not None else {}):
+        loss = float(step(batch)["loss"])
     return (loss, {k: v.detach().cpu() for k, v in model.state_dict().items()},
             {k: p.grad.cpu() for k, p in model.named_parameters()})
 
 
-def engine_maps(state, cfg, batch, device, shard_views=False):
-    """The engine's (depth, conf) of one request, as numpy."""
+def engine_maps(state, cfg, batch, device, shard_policy=None):
+    """The engine's (depth, conf) of one request, as numpy, with
+    ``shard_policy`` (``InferenceEngine``)."""
     from effi_mvs_plus_tpu_torch.infer import InferenceEngine
-    eng = InferenceEngine(state, cfg, device=device, shard_views=shard_views)
+    eng = InferenceEngine(state, cfg, device=device,
+                          shard_policy=shard_policy)
     return eng.infer_batch(batch)
 
 
@@ -130,7 +207,9 @@ def step_deltas(ref, got):
     """A sharded step (loss, state, gradients) against the single
     process's: |Δloss|, max |Δ| over the state's floating entries (an
     integer entry that differs reads inf) and the rel-l2 of every
-    gradient leaf."""
+    gradient leaf, with the worst leaf's reference norm beside the
+    median leaf's (a leaf whose gradient is near zero reads a large
+    rel-l2 from any change of summation order)."""
     (ref_loss, ref_sd, ref_g), (loss, sd, g) = ref, got
     dmax = 0.0
     for k, want in ref_sd.items():
@@ -144,8 +223,11 @@ def step_deltas(ref, got):
         rels[k] = float((g[k] - want).norm()) / norm if norm else float(
             g[k].abs().max())
     worst = max(rels, key=rels.get)
+    norms = sorted(float(v.norm()) for v in ref_g.values())
     return {"loss": loss, "dloss": abs(loss - ref_loss), "max_dparam": dmax,
             "grad_worst_rel_l2": rels[worst], "grad_worst_leaf": worst,
+            "grad_worst_ref_norm": float(ref_g[worst].norm()),
+            "grad_median_ref_norm": norms[len(norms) // 2],
             "grad_rel_l2": rels}
 
 
@@ -226,16 +308,19 @@ def _rank_main(rank, world, port, backend, device, job):
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         n0 = launches()
-        if name == "engine":
+        if name in ENGINES:
             got = engine_maps(state, ref["request_cfg"], ref["request"], dev,
-                              shard_views=True)
+                              ENGINES[name])
             report[name] = map_deltas(ref["maps"], got)
         else:
-            data, model, kinds = LAYOUTS[name]
+            data, model, kinds = job["specs"].get(name) or LAYOUTS[name]
             pol = parallel.make_policy(parallel.make_mesh(data, model), kinds)
-            report[name] = step_deltas(ref["step"],
-                                       train_step(state, cfg, batch, dev,
-                                                  pol))
+            memory = {}
+            report[name] = step_deltas(
+                ref["steps"].get(name, ref["step"]),
+                train_step(state, cfg, ref["batches"].get(name, batch), dev,
+                           pol, memory=memory))
+            report[name]["memory"] = memory
         report[name]["seconds"] = time.perf_counter() - t0
         report[name]["launches"] = {k: v - n0[k]
                                     for k, v in launches().items()}
@@ -251,12 +336,21 @@ def _rank_main(rank, world, port, backend, device, job):
     torch.distributed.destroy_process_group()
 
 
-def references(state, cfg, batch, device, request=None, request_cfg=None):
+def references(state, cfg, batch, device, request=None, request_cfg=None,
+               batches=None):
     """The single process's step on ``batch`` and, given a ``request``,
     the engine's maps (at ``request_cfg``, else ``cfg``): the references
-    of ``spawn``."""
+    of ``spawn``.  ``batches``: layout name -> a batch of its own (a
+    height of ``ROW_HEIGHTS``), with the single process's step on each;
+    ``memory``: the main step's ``memory_phases``."""
+    batches = dict(batches or {})
+    memory = {}
     ref = {"state": state, "cfg": cfg, "batch": batch,
-           "step": train_step(state, cfg, batch, device)}
+           "step": train_step(state, cfg, batch, device, memory=memory),
+           "memory": memory,
+           "batches": batches,
+           "steps": {k: train_step(state, cfg, b, device)
+                     for k, b in batches.items()}}
     if request is not None:
         rcfg = request_cfg or cfg
         ref.update(request=request, request_cfg=rcfg,
@@ -265,9 +359,10 @@ def references(state, cfg, batch, device, request=None, request_cfg=None):
 
 
 def spawn(world, layouts, ref, workdir, device="cuda", backend=None,
-          timeout=120.0, threads=2, setup=None, check=True):
+          timeout=120.0, threads=2, setup=None, check=True, specs=None):
     """Run ``layouts`` (names of ``LAYOUTS`` whose grid has ``world``
-    ranks, or "engine") in ``world`` processes on ``device`` against
+    ranks, of ``specs``, a dict of more such (data, model, layouts)
+    entries, or of ``ENGINES``) in ``world`` processes on ``device`` against
     ``ref`` (``references``); returns rank 0's readings, held to the
     gate's bounds unless ``check`` is False.  ``backend`` defaults to the
     device's (``initialize``); ``setup``, a picklable callable, runs in
@@ -277,7 +372,7 @@ def spawn(world, layouts, ref, workdir, device="cuda", backend=None,
     ref_path = os.path.join(workdir, f"ref_{world}.pt")
     torch.save(ref, ref_path)
     job = {"ref": ref_path, "layouts": list(layouts), "threads": threads,
-           "setup": setup,
+           "setup": setup, "specs": dict(specs or {}),
            "out": os.path.join(workdir, f"report_{world}.json")}
     ctx = mp.start_processes(_rank_main,
                              args=(world, free_port(), backend, device, job),
@@ -292,8 +387,9 @@ def spawn(world, layouts, ref, workdir, device="cuda", backend=None,
         report = json.load(f)
     if check:
         for name in layouts:
-            if name == "engine":
+            if name in ENGINES:
                 check_maps(name, report[name])
             else:
-                check_step(name, ref["step"][0], report[name])
+                check_step(name, ref["steps"].get(name, ref["step"])[0],
+                           report[name])
     return report

@@ -1,5 +1,5 @@
-"""Data, source-view and depth parallelism over a (data, model) grid of
-ranks.
+"""Data, source-view, depth and image-row parallelism over a (data, model)
+grid of ranks.
 
 The port of ``effi_mvs_plus_tpu/parallel/mesh.py``.  Rank ``r`` sits at
 (data ``r // model``, model ``r % model``), and each axis has its own
@@ -29,18 +29,31 @@ process group.
   ranks (``depth_halo``), and train-mode BN sums over the group as well.
   The regularised volumes are gathered along D (``gather_depths``) and
   the rest of the network runs replicated.
+* ``model``, layout ``spatial`` — each model rank holds a block of image
+  rows (``row_blocks_of``) of every activation: the images, the FPN's
+  levels, the per-stage features, the GRU hiddens, the cost volumes.
+  Within ``row_blocks`` every convolution takes the rows its kernel
+  reaches past the block's edges from the neighbouring ranks
+  (``row_halo``) and train-mode BN sums over the group.  A block of
+  reference rows is warped against the whole source features, gathered
+  along H (``gather_rows``); the depth maps and the confidence are
+  gathered at the end.  With ``views`` (``views,spatial``), as in JAX,
+  the views take precedence for the FPN, the warps and ``PixelwiseNet``,
+  which run a block of the views over all rows, and each rank keeps its
+  rows of the view sums from there on.
 
 GSPMD inserts these collectives for the JAX package.  The port writes
 them out, each as an all_reduce of zero-padded blocks (exact, and the one
 collective that both backends take on either device: gloo gathers no
 CUDA tensors).  Unlike GSPMD, which pads an uneven split, the port
 refuses a split of D into blocks the halos cannot serve
-(``depth_split_error``).
+(``depth_split_error``), and cuts image rows at the granularity the
+network forces, which may leave the blocks unequal, refusing only a
+split that leaves a rank no rows (``row_split_error``).
 
 The model calls the module-level hooks, which do nothing unless a
 ``ShardingPolicy`` is active (``use_policy``), so a single process pays
-nothing.  The JAX package's ``spatial`` layout is refused
-(``layout_kinds``; ROADMAP A11).
+nothing.  ``depth,spatial`` is refused (``layout_kinds``; ROADMAP A11d).
 """
 
 from __future__ import annotations
@@ -81,43 +94,55 @@ class _AllReduceSum(torch.autograd.Function):
         return g, None
 
 
-class _DepthHalo(torch.autograd.Function):
-    """A D-block (B, Dl, ...) -> (B, lo + Dl + hi, ...): the last ``lo``
-    planes of the left neighbour's block, the block, the first ``hi``
-    planes of the right neighbour's, zeros past the volume's ends.  Every
-    rank puts its edge planes in its slot of a zero buffer and one
-    all_reduce hands each rank every slot.  The backward returns each
-    halo's gradient to the rank that owns those planes, the same way."""
+def _with_axis(shape, axis, n):
+    return shape[:axis] + (n,) + shape[axis + 1:]
+
+
+class _Halo(torch.autograd.Function):
+    """A block (..., n, ...) along ``axis`` -> (..., lo + n + hi, ...):
+    the last ``lo`` entries of the left neighbour's block, the block, the
+    first ``hi`` entries of the right neighbour's, zeros past the ends of
+    the whole tensor.  Every rank puts its edge entries in its slot of a
+    zero buffer and one all_reduce hands each rank every slot.  The
+    backward returns each halo's gradient to the rank that owns those
+    entries, the same way.  Along D (``depth_halo``) and along H
+    (``row_halo``); blocks may differ in length, the slots do not."""
 
     @staticmethod
-    def forward(ctx, x, lo, hi, group, rank, size):
-        ctx.lo, ctx.hi, ctx.group = lo, hi, group
-        ctx.rank, ctx.size = rank, size
-        B, Dl, rest = x.shape[0], x.shape[1], x.shape[2:]
-        slots = x.new_zeros((size, B, lo + hi) + rest)
-        slots[rank, :, :lo] = x[:, Dl - lo:]
-        slots[rank, :, lo:] = x[:, :hi]
+    def forward(ctx, x, axis, lo, hi, group, rank, size):
+        ctx.args = axis, lo, hi, group, rank, size
+        n, shape = x.shape[axis], tuple(x.shape)
+        if n < max(lo, hi):
+            raise ValueError(f"a block of {n} along axis {axis} cannot "
+                             f"serve a halo of {lo} + {hi}")
+        slots = x.new_zeros((size,) + _with_axis(shape, axis, lo + hi))
+        mine = slots[rank]
+        mine.narrow(axis, 0, lo).copy_(x.narrow(axis, n - lo, lo))
+        mine.narrow(axis, lo, hi).copy_(x.narrow(axis, 0, hi))
         dist.all_reduce(slots, group=group)
-        left = (slots[rank - 1, :, :lo] if rank > 0
-                else x.new_zeros((B, lo) + rest))
-        right = (slots[rank + 1, :, lo:] if rank < size - 1
-                 else x.new_zeros((B, hi) + rest))
-        return torch.cat([left, x, right], 1)
+        left = (slots[rank - 1].narrow(axis, 0, lo) if rank > 0
+                else x.new_zeros(_with_axis(shape, axis, lo)))
+        right = (slots[rank + 1].narrow(axis, lo, hi) if rank < size - 1
+                 else x.new_zeros(_with_axis(shape, axis, hi)))
+        return torch.cat([left, x, right], axis)
 
     @staticmethod
     def backward(ctx, g):
-        lo, hi, rank, size = ctx.lo, ctx.hi, ctx.rank, ctx.size
-        B, Dl, rest = g.shape[0], g.shape[1] - lo - hi, g.shape[2:]
-        gx = g[:, lo:lo + Dl].clone(memory_format=torch.contiguous_format)
-        slots = g.new_zeros((size, B, lo + hi) + rest)
+        axis, lo, hi, group, rank, size = ctx.args
+        n = g.shape[axis] - lo - hi
+        gx = g.narrow(axis, lo, n).clone(
+            memory_format=torch.contiguous_format)
+        slots = g.new_zeros((size,) + _with_axis(tuple(g.shape), axis,
+                                                 lo + hi))
         if rank > 0:
-            slots[rank - 1, :, :lo] = g[:, :lo]
+            slots[rank - 1].narrow(axis, 0, lo).copy_(g.narrow(axis, 0, lo))
         if rank < size - 1:
-            slots[rank + 1, :, lo:] = g[:, lo + Dl:]
-        dist.all_reduce(slots, group=ctx.group)
-        gx[:, Dl - lo:] += slots[rank, :, :lo]
-        gx[:, :hi] += slots[rank, :, lo:]
-        return gx, None, None, None, None, None
+            slots[rank + 1].narrow(axis, lo, hi).copy_(
+                g.narrow(axis, lo + n, hi))
+        dist.all_reduce(slots, group=group)
+        gx.narrow(axis, n - lo, lo).add_(slots[rank].narrow(axis, 0, lo))
+        gx.narrow(axis, 0, hi).add_(slots[rank].narrow(axis, lo, hi))
+        return gx, None, None, None, None, None, None
 
 
 class Mesh:
@@ -165,32 +190,63 @@ def view_blocks(n_src, parts):
     return list(zip(starts[:-1], starts[1:]))
 
 
-# the JAX package's model-axis layouts the port has, and the one it
-# refuses, with why
-PORTED_LAYOUTS = ("views", "depth")
-REFUSED_LAYOUTS = {
-    "spatial": "spatial (image-row) sharding is not ported: it was "
-               "measured 8x worse per device than unsharded "
-               "(SHARDING_TANK_r02.json; ROADMAP A11); use views or depth",
-}
+# the JAX package's model-axis layouts the port has, and the combination
+# it refuses, with why
+PORTED_LAYOUTS = ("views", "depth", "spatial")
+NO_DEPTH_SPATIAL = ("depth,spatial is not ported: it would split one cost "
+                    "volume along D and along H at once (the JAX package's "
+                    "volume() lets D take precedence); ROADMAP A11d.  Use "
+                    "views,depth or views,spatial")
 
 
 def layout_kinds(spec):
     """The model-axis layouts of a comma list such as ``"views,depth"``;
-    raises ValueError, with the reason, for one the port refuses and for
-    an empty list (a model axis that shards nothing would only repeat
-    the work on every rank)."""
+    raises ValueError, with the reason, for a combination the port
+    refuses, for an unknown layout and for an empty list (a model axis
+    that shards nothing would only repeat the work on every rank)."""
     kinds = {k.strip() for k in spec.split(",") if k.strip()}
     if not kinds:
         raise ValueError("no model-axis layout given; the port has "
-                         "views and depth")
+                         "views, depth and spatial")
     for k in sorted(kinds):
-        if k in REFUSED_LAYOUTS:
-            raise ValueError(REFUSED_LAYOUTS[k])
         if k not in PORTED_LAYOUTS:
-            raise ValueError(f"unknown layout {k!r}; the port has views "
-                             f"and depth")
+            raise ValueError(f"unknown layout {k!r}; the port has views, "
+                             f"depth and spatial")
+    if {"depth", "spatial"} <= kinds:
+        raise ValueError(NO_DEPTH_SPATIAL)
     return kinds
+
+
+# image rows a row block holds a multiple of: the FPN halves H three times
+# (stage 1 is 1/8 of the image) and CostRegNet twice more
+ROW_MULTIPLE = 32
+
+
+def row_blocks_of(H, parts):
+    """Contiguous blocks [start, stop) of ``H`` image rows over ``parts``
+    ranks, each a multiple of ``ROW_MULTIPLE`` rows and as equal as that
+    allows, the last ``(H / ROW_MULTIPLE) % parts`` one unit longer;
+    raises ValueError, with the reason, for a split that leaves a rank no
+    rows (``row_split_error``)."""
+    why = row_split_error(H, parts)
+    if why:
+        raise ValueError(why)
+    q, r = divmod(H // ROW_MULTIPLE, parts)
+    starts = [ROW_MULTIPLE * (m * q + max(0, m - (parts - r)))
+              for m in range(parts + 1)]
+    return list(zip(starts[:-1], starts[1:]))
+
+
+def row_split_error(H, parts):
+    """Why ``H`` image rows cannot be cut into ``parts`` blocks of a
+    multiple of ``ROW_MULTIPLE`` rows, none empty, or None."""
+    if H % ROW_MULTIPLE == 0 and H // ROW_MULTIPLE >= parts:
+        return None
+    return (f"{H} image rows do not give each of {parts} model ranks a "
+            f"block of a multiple of {ROW_MULTIPLE} rows (the FPN and "
+            f"CostRegNet halve H five times; stage 1 has {H / 8:g} rows); "
+            f"GSPMD pads such a split, the port refuses it: fit "
+            f"--model_parallel or use --shard_policy views")
 
 
 def depth_split_error(D, parts, multiple=1):
@@ -214,20 +270,25 @@ def make_policy(mesh, spec):
     on ``mesh``, as the JAX CLI builds it."""
     kinds = layout_kinds(spec)
     return ShardingPolicy(mesh, shard_views="views" in kinds,
-                          shard_depth="depth" in kinds)
+                          shard_depth="depth" in kinds,
+                          shard_spatial="spatial" in kinds)
 
 
 class ShardingPolicy:
     """The layouts the model hooks apply on a mesh: the batch over the
     data axis; over the model axis the source views (``shard_views``),
-    the cost volume's hypotheses (``shard_depth``) or both.  A mesh of
-    one model rank shards neither."""
+    the cost volume's hypotheses (``shard_depth``), the image rows
+    (``shard_spatial``), or the views with one of the others.  A mesh of
+    one model rank shards nothing."""
 
     def __init__(self, mesh: Mesh, shard_views: bool = True,
-                 shard_depth: bool = False):
+                 shard_depth: bool = False, shard_spatial: bool = False):
+        if shard_depth and shard_spatial:
+            raise ValueError(NO_DEPTH_SPATIAL)
         self.mesh = mesh
         self.shard_views = shard_views and mesh.model > 1
         self.shard_depth = shard_depth and mesh.model > 1
+        self.shard_spatial = shard_spatial and mesh.model > 1
 
     # ---- data axis
     def reduce_data(self, x):
@@ -325,12 +386,13 @@ class ShardingPolicy:
 
     def sync_gradients(self, model):
         """Average the gradients over the data group, and those of the
-        model-sharded modules over the model group, one flat bucket each.
-        Within a group every rank computes the same loss (the data group
-        all-reduces the loss's sums, the model group the view sums or the
-        D-blocks), so the backward of those all_reduces sums the ranks'
-        equal gradients: a rank's gradient is the group's size times its
-        own share, and the mean over the group is the sum of the shares.
+        model-sharded modules (under spatial, all) over the model group,
+        one flat bucket each.  Within a group every rank computes the same
+        loss (the data group all-reduces the loss's sums, the model group
+        the view sums, the D-blocks or the row blocks), so the backward of
+        those all_reduces sums the ranks' equal gradients: a rank's
+        gradient is the group's size times its own share, and the mean
+        over the group is the sum of the shares.
         The replicated rest of the step holds the whole gradient on every
         model rank already."""
         params = [p for p in model.parameters() if p.requires_grad]
@@ -340,7 +402,12 @@ class ShardingPolicy:
         if self.mesh.data > 1:
             _mean_bucket([p.grad for p in params], self.mesh.data_group,
                          self.mesh.data)
-        if self.shard_views or self.shard_depth:
+        if self.shard_spatial:
+            # every module runs on a block of rows (or, with views, of
+            # views): each rank holds M times its share of every gradient
+            _mean_bucket([p.grad for p in params], self.mesh.model_group,
+                         self.mesh.model)
+        elif self.shard_views or self.shard_depth:
             names = DEPTH_SHARDED if self.shard_depth else VIEW_SHARDED
             sharded = [p.grad for name in names
                        for p in getattr(model, name).parameters()]
@@ -386,6 +453,41 @@ def depth_blocks():
         yield
     finally:
         _tls.depth = prev
+
+
+@contextlib.contextmanager
+def image_rows(H):
+    """The forward's image of ``H`` rows: under spatial sharding it fixes
+    every model rank's block of rows (``row_blocks_of``; ValueError, with
+    the reason, for a split that leaves a rank none) for ``row_blocks``,
+    ``row_slice`` and ``gather_rows`` inside, and yields this rank's
+    [start, stop); (0, H) elsewhere."""
+    pol = _active()
+    prev = getattr(_tls, "rows", None)
+    if pol is None or not pol.shard_spatial:
+        yield 0, H
+        return
+    _tls.rows = row_blocks_of(H, pol.mesh.model)
+    try:
+        yield _tls.rows[pol.mesh.model_rank]
+    finally:
+        _tls.rows = prev
+
+
+@contextlib.contextmanager
+def row_blocks(on=True):
+    """Marks code that runs on this rank's block of rows of every tensor
+    (``on``), or on all rows (``on=False``, the view-sharded part under
+    ``views,spatial``): inside ``image_rows`` under spatial sharding,
+    its convolutions take their halos from the neighbouring ranks
+    (``nn.Conv``, the ConvGRU, the stem chain, ``convex_upsample``) and
+    its train-mode BN sums over the model group."""
+    prev = getattr(_tls, "row_blocks", False)
+    _tls.row_blocks = on
+    try:
+        yield
+    finally:
+        _tls.row_blocks = prev
 
 
 @contextlib.contextmanager
@@ -439,7 +541,7 @@ def gather_view_stats(*xs):
     return pol.gather_view_stats(xs, *views)
 
 
-def _blocked() -> Optional[ShardingPolicy]:
+def _depth_blocked() -> Optional[ShardingPolicy]:
     """The active policy inside ``depth_blocks`` under depth sharding."""
     pol = _active()
     if pol is None or not pol.shard_depth or not getattr(_tls, "depth",
@@ -448,26 +550,140 @@ def _blocked() -> Optional[ShardingPolicy]:
     return pol
 
 
+def _row_split() -> Optional[list]:
+    """Every model rank's [start, stop) of the image rows inside
+    ``image_rows`` under spatial sharding; None elsewhere."""
+    pol = _active()
+    if pol is None or not pol.shard_spatial:
+        return None
+    return getattr(_tls, "rows", None)
+
+
+def _row_blocked() -> Optional[ShardingPolicy]:
+    """The active policy inside ``row_blocks`` under spatial sharding."""
+    if _row_split() is None or not getattr(_tls, "row_blocks", False):
+        return None
+    return _active()
+
+
 def depth_parts() -> int:
     """The model ranks that share a volume's D inside ``depth_blocks`` (1
     elsewhere)."""
-    pol = _blocked()
+    pol = _depth_blocked()
     return 1 if pol is None else pol.mesh.model
 
 
-def reduce_depth(x):
-    """Inside ``depth_blocks``: x summed over the model group,
-    differentiable."""
-    pol = _blocked()
+def row_parts() -> int:
+    """The model ranks that share the image rows inside ``row_blocks``
+    (1 elsewhere)."""
+    pol = _row_blocked()
+    return 1 if pol is None else pol.mesh.model
+
+
+def reduce_blocks(x):
+    """Inside ``depth_blocks`` or ``row_blocks``: x summed over the model
+    group, whose ranks hold the other blocks, differentiable."""
+    pol = _depth_blocked() or _row_blocked()
     return x if pol is None else _AllReduceSum.apply(x, pol.mesh.model_group)
+
+
+def _global_rows(h_local):
+    """The rows of the whole tensor whose block on this rank has
+    ``h_local`` rows (inside ``image_rows`` under spatial sharding): every
+    level's blocks are the image's scaled by the same power of two."""
+    split = _row_split()
+    start, stop = split[_active().mesh.model_rank]
+    H = split[-1][1]
+    if (H * h_local) % (stop - start):
+        raise ValueError(f"a block of {h_local} rows is no level of the "
+                         f"image's block of {stop - start}")
+    return H * h_local // (stop - start)
+
+
+def _blocks_at(h):
+    """Every model rank's [start, stop) of a tensor of ``h`` rows."""
+    split = _row_split()
+    k, rem = divmod(split[-1][1], h)
+    if rem or any(a % k or b % k for a, b in split):
+        raise ValueError(f"{h} rows are no level of the image's "
+                         f"{split[-1][1]} rows split as {split}")
+    return [(a // k, b // k) for a, b in split]
+
+
+def block_count(n, h_local):
+    """The elements of the whole tensor per channel of which this rank's
+    block holds ``n`` with ``h_local`` rows: n times the D-blocks inside
+    ``depth_blocks``, n scaled from this rank's rows to all rows inside
+    ``row_blocks``; n elsewhere."""
+    n *= depth_parts()
+    if _row_blocked() is not None:
+        n = n // h_local * _global_rows(h_local)
+    return n
 
 
 def depth_halo(x, lo, hi):
     """Inside ``depth_blocks``: the D-block x with ``lo`` planes of its
     left neighbour's and ``hi`` of its right neighbour's (zeros past the
-    volume's ends), differentiable (``_DepthHalo``)."""
-    m = _blocked().mesh
-    return _DepthHalo.apply(x, lo, hi, m.model_group, m.model_rank, m.model)
+    volume's ends), differentiable (``_Halo``)."""
+    m = _depth_blocked().mesh
+    return _Halo.apply(x, 1, lo, hi, m.model_group, m.model_rank, m.model)
+
+
+def row_halo(x, lo, hi):
+    """Inside ``row_blocks``: the row block x (rows on axis -3, as in
+    (B,H,W,C) and (B,D,H,W,C)) with ``lo`` rows of the rank above's
+    block and ``hi`` of the rank below's (zeros past the image's top and
+    bottom), differentiable (``_Halo``)."""
+    m = _row_blocked().mesh
+    return _Halo.apply(x, x.dim() - 3, lo, hi, m.model_group, m.model_rank,
+                       m.model)
+
+
+def row_context(x, n):
+    """Inside ``row_blocks``: the row block x with ``n`` rows of each
+    neighbour's block and none past the image's top and bottom, and the
+    rows added on top: a kernel that pads the tensor it is given with
+    zeros (K2, K4) pads there as it pads the whole image, and its rows
+    [top, top + h) are the block's."""
+    m = _row_blocked().mesh
+    ext = row_halo(x, n, n)
+    top = n if m.model_rank > 0 else 0
+    bottom = n if m.model_rank < m.model - 1 else 0
+    axis = x.dim() - 3
+    return ext.narrow(axis, n - top, x.shape[axis] + top + bottom), top
+
+
+def row_slice(h):
+    """This rank's rows of a tensor of ``h`` rows inside ``image_rows``
+    under spatial sharding (a slice of axis H); all of them elsewhere."""
+    if _row_split() is None:
+        return slice(None)
+    start, stop = _blocks_at(h)[_active().mesh.model_rank]
+    return slice(start, stop)
+
+
+def gather_rows(*xs, axis):
+    """Each row block of xs (rows on ``axis``) -> the whole tensor, the
+    same on every model rank, in one differentiable all_reduce of
+    zero-padded tensors (xs may differ in shape, not in dtype); its
+    backward sums the gradients over the group, as ``sum_views``'s does.
+    xs as they are without spatial sharding."""
+    if _row_split() is None:
+        return xs
+    pol = _active()
+    fulls = []
+    for x in xs:
+        ax = axis % x.dim()
+        blocks = _blocks_at(_global_rows(x.shape[ax]))
+        start, stop = blocks[pol.mesh.model_rank]
+        shape = tuple(x.shape)
+        fulls.append(torch.cat([
+            x.new_zeros(_with_axis(shape, ax, start)), x,
+            x.new_zeros(_with_axis(shape, ax, blocks[-1][1] - stop))], ax))
+    flat = _AllReduceSum.apply(torch.cat([f.reshape(-1) for f in fulls]),
+                               pol.mesh.model_group)
+    return tuple(y.view(f.shape) for y, f in
+                 zip(torch.split(flat, [f.numel() for f in fulls]), fulls))
 
 
 def depth_slices(D, multiple=1):

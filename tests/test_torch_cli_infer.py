@@ -131,7 +131,7 @@ def test_inference_clis_refuse_what_is_not_ported(tmp_path):
          "--shard_views"])
     assert args.shard_views
     eng = InferenceEngine(load_npz_checkpoint(CKPT.format("tank")),
-                          device="cpu", shard_views=True)
+                          device="cpu", shard_policy="views")
     assert eng._policy is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -182,9 +182,10 @@ def test_train_cli_loadckpt(tree, tmp_path, monkeypatch):
 
 
 # what stays refused, and why: fine-tuning needs weights to start from;
-# the device cache served a slow host link the card does not have;
-# spatial sharding, alone or beside depth, is refused (ROADMAP A11); a
-# grid needs as many processes as it has ranks
+# the device cache served a slow host link the card does not have; depth
+# beside spatial sharding is refused (ROADMAP A11d); a grid needs as many
+# processes as it has ranks.  Spatial sharding is taken: in one process
+# the run goes on to the grid's check, which refuses two model ranks
 REFUSED = {"--mode": "requires --loadckpt", "--shard_policy": None,
            "--device_cache": "no such link",
            "--data_parallel": "needs 2 processes",
@@ -198,8 +199,10 @@ REFUSED = {"--mode": "requires --loadckpt", "--shard_policy": None,
                                   ["--data_parallel", "2"],
                                   ["--model_parallel", "2"]])
 def test_unported_options_are_refused(flag):
-    why = REFUSED[flag[0]] or {"depth,spatial": "8x worse",
-                               "spatial": "8x worse"}[flag[1]]
+    why = REFUSED[flag[0]] or {"depth,spatial": "D and along H.*A11d",
+                               "spatial": "needs 2 processes"}[flag[1]]
+    if flag[-1] == "spatial":
+        flag = flag + ["--model_parallel", "2"]
     with pytest.raises(SystemExit, match=why):
         cli.main(flag + ["--device", "cpu"])
 

@@ -63,20 +63,24 @@ def test_scan_sees_the_package():
                 "parallel/equivalence.py", "data/registry.py",
                 "data/loader.py", "infer/engine.py", "fuse/static.py",
                 "fuse/legacy.py", "fuse/gipuma.py", "train/metrics.py",
-                "native/__init__.py"):
+                "native/__init__.py", "entry.py"):
         assert f"effi_mvs_plus_tpu_torch/{new}" in rel
 
 
 @pytest.mark.parametrize("flag,why", [
     (["--device_cache"], "a GPU host has no such link"),
-    (["--shard_policy", "depth,spatial"], "measured 8x worse"),
-    (["--shard_policy", "spatial"], "measured 8x worse"),
-    (["--shard_policy", "views,spatial"], "measured 8x worse"),
+    (["--shard_policy", "depth,spatial"], "ROADMAP A11d"),
+    (["--shard_policy", "spatial"], None),
+    (["--shard_policy", "views,spatial"], None),
     (["--shard_policy", "rows"], "unknown layout"),
     (["--shard_policy", ""], "no model-axis layout")])
 def test_train_cli_refusals_give_their_reason(flag, why):
     """The train CLI's flags that stay unported refuse before any work,
-    each naming why (the device cache) or its ROADMAP item."""
+    each naming why (the device cache) or its ROADMAP item; the spatial
+    layouts (``why`` None) are taken, and one process with two model
+    ranks is then refused by the grid's check."""
     from effi_mvs_plus_tpu_torch.cli import train
+    if why is None:
+        flag, why = flag + ["--model_parallel", "2"], "needs 2 processes"
     with pytest.raises(SystemExit, match=why):
         train.main(flag + ["--device", "cpu"])

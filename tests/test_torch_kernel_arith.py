@@ -249,6 +249,35 @@ def test_profiles_classify_every_kernel():
             if classify(n + "<float, 32>") == "other"} == {}
 
 
+@pytest.mark.parametrize("row0", [0, 3])
+def test_warp_bound_counts_the_texels_the_taps_reach(row0):
+    """chip_smoke.py's K1/K3 bounds read the source texels that the
+    in-image bilinear taps reach, counted once per batch and view: the
+    same count as a set of (x, y) built tap by tap."""
+    import math
+    sys.path.insert(0, str(pathlib.Path(__file__).parents[1]))
+    import chip_smoke
+    from effi_mvs_plus_tpu_torch.core import geometry
+    torch.manual_seed(0)
+    B, V, D, h, w, H = 2, 3, 4, 6, 9, 12
+    rots = torch.eye(3).repeat(B, V, 1, 1) + 0.05 * torch.randn(B, V, 3, 3)
+    trs = torch.randn(B, V, 3)
+    depth = 5 + torch.rand(B, D, h, w)
+    want = 0
+    for v in range(V):
+        px, py = geometry.project_to_src(rots[:, v], trs[:, v], depth, h, w,
+                                         row0)
+        for b in range(B):
+            seen = {(math.floor(x) + ox, math.floor(y) + oy)
+                    for x, y in zip(px[b].flatten().tolist(),
+                                    py[b].flatten().tolist())
+                    for ox in (0, 1) for oy in (0, 1)}
+            want += sum(0 <= x < w and 0 <= y < H for x, y in seen)
+    got = chip_smoke.tapped_texels(torch, geometry, rots, trs, depth, H, w,
+                                   row0)
+    assert 0 < got == want < B * V * H * w
+
+
 # ---- the range of bf16 results the checks on the card accept ----
 
 def _f64_orders(fn):

@@ -104,6 +104,43 @@ def test_warp_kernel_matches_plain(gpu, monkeypatch, case, C, dtype):
     _check_window_stats(case, stats, windows)
 
 
+@pytest.mark.parametrize("case", ["small", "overflow", "dtu_stage1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_kernels_on_row_blocks(gpu, monkeypatch, case, dtype):
+    """K1 and K3 on two unequal blocks of reference rows against the whole
+    source maps (the spatial layout), each with its row offset: K1
+    against the plain version with the same offset and bit for bit
+    against the whole image's rows, K3's d_ref and d_src against the
+    plain backward with the offset."""
+    g_, ref, src, rots, trs, depth = _warp_case(gpu, monkeypatch, case, 32,
+                                                dtype, 4)
+    H = ref.shape[1]
+    whole = cuda_warp.warp_correlate_views(ref, src, rots, trs, depth)
+    cut = 4 * (H // 12)
+    for y0, y1 in ((0, cut), (cut, H)):
+        rb, db = ref[:, y0:y1], depth[:, :, y0:y1]
+        got = cuda_warp.warp_correlate_views(rb, src, rots, trs, db, y0)
+        want = cuda_warp._views_torch(rb.float(), src.float(), rots, trs, db,
+                                      y0)
+        tol = WARP_ATOL[case] \
+            + (2.0 ** -8 if dtype == torch.bfloat16 else 0.0) * want.abs()
+        assert ((got.float() - want).abs() <= tol).all()
+        assert torch.equal(got, whole[:, :, :, y0:y1])
+        g = torch.randn(got.shape, generator=g_, device=gpu).to(dtype)
+        d_ref, d_src = cuda_warp._views_bwd_cuda(rb, src, rots, trs, db, g,
+                                                 y0=y0)
+        # fresh leaves: fp32 .float() returns the tensor itself, whose
+        # gradient would gather both blocks'
+        r = rb.detach().float().clone().requires_grad_()
+        s_ = src.detach().float().clone().requires_grad_()
+        cuda_warp._views_torch(r, s_, rots, trs, db, y0).backward(g.float())
+        for k, w in ((d_ref, r.grad), (d_src, s_.grad)):
+            assert k.shape == w.shape
+            atol = WARP_ATOL[case] * max(1.0, float(w.abs().max()))
+            assert ((k.float() - w).abs() <= atol + (
+                2.0 ** -8 if dtype == torch.bfloat16 else 0.0) * w.abs()).all()
+
+
 def _bwd_plain(ref, src, rots, trs, depth, g):
     """Autograd of the plain version, in fp32 on the same values."""
     r = ref.float().requires_grad_()

@@ -64,11 +64,11 @@ def test_model_hands_the_warp_no_geometry_gradient(monkeypatch):
     seen = []
     plain = cuda_warp.warp_correlate_views
 
-    def spy(ref, src, rots, trs, depth):
+    def spy(ref, src, rots, trs, depth, y0=0):
         seen.append((ref.requires_grad, src.requires_grad,
                      rots.requires_grad, trs.requires_grad,
                      depth.requires_grad))
-        return plain(ref, src, rots, trs, depth)
+        return plain(ref, src, rots, trs, depth, y0)
     monkeypatch.setattr(cuda_warp, "warp_correlate_views", spy)
     imgs, proj_ms, dv = make_inputs()
     torch.manual_seed(0)
