@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on a GPU: serving,
 training, the Tanks & Temples reconstruction chain, BlendedMVS
-fine-tuning and multi-process parallelism.
+fine-tuning, multi-process parallelism and the device cache.
 
     python3 chip_smoke.py
 
@@ -89,13 +89,34 @@ imports nothing of JAX.  It
    row blocks) against the single process's maps, after K1 and K3 on the
    two row blocks of the fine-tune stage-1 and stage-3 shapes (each
    against its plain version with the same row offset, K1 also against
-   the whole image's rows); NCCL across cards is not exercised;
-9. runs the compile-check entry (``entry.py``): ``entry()``'s forward on
+   the whole image's rows); then (``distributed_depth_spatial``, one
+   spawn) ``depth,spatial`` (the 2-D activations 288 + 288 rows, the
+   volumes 48 + 48 stage-1 and 4 + 4 later hypotheses over all rows) and
+   ``views,depth,spatial`` at the fine-tune config, each against the same
+   single-process step at the gate's bounds, with K1 3, K2 9, K3 3 a
+   rank's step, each rank's peak memory beside ``depth``'s and
+   ``spatial``'s and a rank's ``memory_phases``; NCCL across cards is not
+   exercised;
+9. (``device_cache``) writes a DTU-training tree at the training config
+   from the seed (12 views, 7 lights, 640x512: about 0.1 GB in the
+   cache), builds ``data/device_cache.py``'s cache on the card and holds
+   its test-mode batches to the ``Loader``'s after ``batch_to_device``
+   (every leaf but the images bit for bit; the images in their bytes and
+   within one fp32 ulp: the cache rounds x / 255 as the JAX cache does,
+   x times the reciprocal) and shows ``batch_to_device`` passing them
+   through without a copy; then runs ``cli/train.py main --mode train``
+   for an epoch (21 steps, 3 eval batches) fed by the cache and by the
+   ``Loader`` in turns, with each run's launch counts (K1 3, K2 9, K3 3 a
+   step; K4 in the eval forwards) and its samples/s by CUDA events and
+   by the host clock from one step's end to the next's, and the cache's
+   bytes;
+10. runs the compile-check entry (``entry.py``): ``entry()``'s forward on
    the card against the CPU, and ``dryrun_multichip(2)``;
-10. prints each phase's seconds, a ``{"kernels": [...]}`` line (K2 and K4
+11. prints each phase's seconds, a ``{"kernels": [...]}`` line (K2 and K4
    entries name the CUDA route of each layer in ``cuda_route``: ``mma``
-   on the tensor cores, ``fma`` on the CUDA cores), the card's name and
-   power limit, then the device line last.
+   on the tensor cores, ``fma`` on the CUDA cores; K1-K4 carry their
+   launches in the cache-fed run and K1-K3 in a ``depth,spatial`` rank's
+   step), the card's name and power limit, then the device line last.
 
 Any failure raises and the exit code is nonzero.  Without a GPU it exits
 1 and prints no result.
@@ -138,6 +159,9 @@ CONFIGS = {
 TRAIN = dict(B=4, V=5, H=512, W=640, ndepths=(48, 8, 8), f=361.54,
              dmin=425.0, dint=2.5 * 0.53, step=(15.0, 4.0, 2.0), ang=0.02)
 TRAIN_STEPS = (2, 5)          # warm-up and timed training steps
+# the device cache's DTU tree: a dozen views under 7 lights at the training
+# config (about 0.1 GB on the card), raw depth with a margin of 64 pixels
+CACHE_TREE = dict(views=12, lights=7, scan="scan1", margin=64)
 # the BlendedMVS fine-tuning config (cli/train.py --mode finetune, the
 # blend_finetune profile: 768x576, 7 views, 96/8/8, B=8, fp32) for K1-K3's
 # phases; the seeded rig of the rendered tree below (quarter-res focal)
@@ -459,8 +483,11 @@ def run(torch, card):
         seconds["blend_render"] = lap()
         finetune, test = finetune_path(torch, root, tree, listfile)
         seconds["finetune_path"] = lap()
-        rows_entries = distributed_phase(torch, tree, listfile, sd)
+        rows_entries, dsp_launches = distributed_phase(torch, tree,
+                                                       listfile, sd)
         seconds["distributed"] = lap()
+    cache = device_cache_phase(torch)
+    seconds["device_cache"] = lap()
     entry_phase(torch)
     seconds["entry"] = lap()
 
@@ -477,10 +504,14 @@ def run(torch, card):
         if e["name"] != "warp_correlate_bwd":
             e["launches_train"] = train[name]
             e["launches_tnt"] = tank[name]
+        e["launches_device_cache"] = cache[name]
+        e["launches_depth_spatial_rank"] = dsp_launches["depth_spatial"][
+            name[:2]]
     for e in chain_entries:
         e["launches"] = k4_main
         e["launches_tnt"] = tank["k4_launches"]
         e["launches_finetune_test"] = test["k4_launches"]
+        e["launches_device_cache"] = cache["k4_launches"]
     log({"phase": "seconds", **seconds,
          "total": time.perf_counter() - t_run})
     print(json.dumps({"kernels": entries + chain_entries + rows_entries}),
@@ -1731,39 +1762,30 @@ def blend_batch(tree, listfile):
     return batch
 
 
-def finetune_path(torch, root, tree, listfile):
-    """BlendedMVS fine-tuning through ``cli/train.py``'s own ``main``:
-    ``--mode finetune`` (the blend_finetune profile at full width: 768x576,
-    7 views, 96/8/8, B=8, fp32) from model_dtu.npz on the rendered tree,
-    BLEND_TREE's epochs of 2 steps and an eval batch each, with the launch
-    counts reset just before and read just after and each step timed by
-    CUDA events; then one step with the kernels against one with the plain
-    versions, ``--mode test`` (K4 in its eval forwards) and ``--mode
-    profile``.  Returns the launch counts of the fine-tune run and of the
-    test run."""
-    from effi_mvs_plus_tpu_torch.cli import train as cli
-    from effi_mvs_plus_tpu_torch.io import load_npz_checkpoint
-    from effi_mvs_plus_tpu_torch.models import EffiMVS, EffiMVSConfig
+def launch_counts():
+    """Every kernel wrapper's launch count."""
     from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
+    return {"k1_launches": cuda_warp.launches,
+            "k2_launches": cuda_gru.launches,
+            "k3_launches": cuda_warp.bwd_launches,
+            "k4_launches": cuda_conv.launches}
+
+
+def reset_launches():
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
+    cuda_warp.launches = cuda_gru.launches = 0
+    cuda_warp.bwd_launches = cuda_conv.launches = 0
+
+
+def timed_cli(torch, argv):
+    """``cli/train.py``'s ``main(argv)`` with every training step it runs
+    timed by CUDA events, the launch counts reset just before and read
+    just after: (step ms, the host clock when each step had finished,
+    the launch counts, seconds)."""
+    from effi_mvs_plus_tpu_torch.cli import train as cli
     from effi_mvs_plus_tpu_torch.train import trainer as T
-
-    def counts():
-        return {"k1_launches": cuda_warp.launches,
-                "k2_launches": cuda_gru.launches,
-                "k3_launches": cuda_warp.bwd_launches,
-                "k4_launches": cuda_conv.launches}
-
-    def reset():
-        cuda_warp.launches = cuda_gru.launches = 0
-        cuda_warp.bwd_launches = cuda_conv.launches = 0
-
-    npz = os.path.join(root, "checkpoints", "model_dtu.npz")
-    logdir = os.path.join(tree, "run")
-    common = ["--device", "cuda", "--testpath", tree, "--testlist",
-              listfile, "--loadckpt", npz, "--num_workers", "8"]
     real = T.make_train_step
-    step_ms = []
-    step_done = []                 # host clock when each step had finished
+    step_ms, step_done = [], []
 
     def timed_step(*args, **kwargs):
         step = real(*args, **kwargs)
@@ -1780,19 +1802,41 @@ def finetune_path(torch, root, tree, listfile):
             return metrics
         return run_step
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     T.make_train_step = timed_step
-    reset()
+    reset_launches()
     try:
-        cli.main(["--mode", "finetune", "--trainpath", tree, "--trainlist",
-                  listfile, "--logdir", logdir, "--epochs",
-                  str(BLEND_TREE["epochs"]), "--summary_freq", "1"] + common)
+        cli.main(argv)
     finally:
         T.make_train_step = real
-    ft = counts()
-    ft_s = time.perf_counter() - t0
+    return step_ms, step_done, launch_counts(), time.perf_counter() - t0
+
+
+def finetune_path(torch, root, tree, listfile):
+    """BlendedMVS fine-tuning through ``cli/train.py``'s own ``main``:
+    ``--mode finetune`` (the blend_finetune profile at full width: 768x576,
+    7 views, 96/8/8, B=8, fp32) from model_dtu.npz on the rendered tree,
+    BLEND_TREE's epochs of 2 steps and an eval batch each, with the launch
+    counts reset just before and read just after and each step timed by
+    CUDA events; then one step with the kernels against one with the plain
+    versions, ``--mode test`` (K4 in its eval forwards) and ``--mode
+    profile``.  Returns the launch counts of the fine-tune run and of the
+    test run."""
+    from effi_mvs_plus_tpu_torch.cli import train as cli
+    from effi_mvs_plus_tpu_torch.io import load_npz_checkpoint
+    from effi_mvs_plus_tpu_torch.models import EffiMVS, EffiMVSConfig
+    from effi_mvs_plus_tpu_torch.train import trainer as T
+
+    npz = os.path.join(root, "checkpoints", "model_dtu.npz")
+    logdir = os.path.join(tree, "run")
+    common = ["--device", "cuda", "--testpath", tree, "--testlist",
+              listfile, "--loadckpt", npz, "--num_workers", "8"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, step_done, ft, ft_s = timed_cli(torch, [
+        "--mode", "finetune", "--trainpath", tree, "--trainlist", listfile,
+        "--logdir", logdir, "--epochs", str(BLEND_TREE["epochs"]),
+        "--summary_freq", "1"] + common)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     steps = len(step_ms)
     evals = BLEND_TREE["epochs"] * (BLEND_TREE["views"] // BLEND["B"])
@@ -1849,12 +1893,12 @@ def finetune_path(torch, root, tree, listfile):
          "grad_worst_leaf": worst_leaf, "grad_p90_rel_l2": p90})
 
     # --mode test: the eval suite over the tree, K4 in each eval forward
-    reset()
+    reset_launches()
     t0 = time.perf_counter()
     means = cli.main(["--mode", "test", "--dataset", "blend", "--ndepths",
                       "96,8,8", "--testviews", str(BLEND["V"]),
                       "--batch_size", str(BLEND["B"])] + common)
-    test = counts()
+    test = launch_counts()
     n_batches = -(-BLEND_TREE["views"] // BLEND["B"])
     if not (all(np.isfinite(v) for v in means.values())
             and test["k4_launches"] == 8 * n_batches
@@ -1896,8 +1940,15 @@ def distributed_phase(torch, tree, listfile, sd):
     single-process result.  Before the spawns, K1 runs on each D-block of
     the expanded stage-1 sweep (``depth_block_k1``), and K1 and K3 on the
     row blocks of the fine-tune stage-1 and stage-3 shapes
-    (``row_block_kernels``).  Returns the row-block kernel entries, their
-    launches a rank's ``spatial`` step."""
+    (``row_block_kernels``).  Last, in one spawn, ``depth,spatial`` (the
+    2-D activations 288 + 288 rows, the volumes 48 + 48 stage-1 and
+    4 + 4 later hypotheses over all rows) and ``views,depth,spatial``
+    (3 + 3 sources for the FPN, the warps and PixelwiseNet, then D-blocks
+    of the summed volumes, then rows), with each rank's peak memory beside
+    ``depth``'s and ``spatial``'s and a rank's ``memory_phases``.
+    Returns the row-block kernel entries, their launches a rank's
+    ``spatial`` step, and the launches of a rank's step in each of the
+    two layouts."""
     from effi_mvs_plus_tpu_torch.data import cams as camio
     from effi_mvs_plus_tpu_torch.models import EffiMVSConfig
     from effi_mvs_plus_tpu_torch.ops import cuda_warp
@@ -1929,9 +1980,16 @@ def distributed_phase(torch, tree, listfile, sd):
                        ref, work, backend="gloo", device="cuda",
                        timeout=600, threads=4)
         rows_s = time.perf_counter() - t_rows
+        t_dsp = time.perf_counter()
+        dsp = E.spawn(2, ["depth_spatial", "views_depth_spatial"], ref,
+                      work, backend="gloo", device="cuda", timeout=600,
+                      threads=4)
+        dsp_s = time.perf_counter() - t_dsp
     for name, r in [*((n, report[n]) for n in ("data", "views")),
                     *((n, depth[n]) for n in ("depth", "views_depth")),
-                    *((n, rows[n]) for n in ("spatial", "views_spatial"))]:
+                    *((n, rows[n]) for n in ("spatial", "views_spatial")),
+                    *((n, dsp[n]) for n in ("depth_spatial",
+                                            "views_depth_spatial"))]:
         n = r["launches"]
         if not (n["k1"] == 3 and n["k2"] == 9 and n["k3"] == 3):
             raise AssertionError(f"distributed {name}: launches {n}")
@@ -1977,7 +2035,21 @@ def distributed_phase(torch, tree, listfile, sd):
          "single_process_memory": ref["memory"],
          "k1_k3_row_blocks": row_blocks, **rows, "bounds": bounds,
          "seconds": rows_s})
-    return rows_entries
+    log({"phase": "distributed_depth_spatial", "ranks": 2,
+         "route": "gloo on CUDA tensors, both ranks on cuda:0; the 2-D "
+                  "activations by image rows, the cost volumes by "
+                  "hypotheses, each tensor along one axis",
+         "step_config": "blend_finetune B8 V7 768x576 96/8/8 fp32, image "
+                        "rows 288 + 288 (stage 1: 36 + 36), stage-1 "
+                        "hypotheses 48 + 48, stages 2-3 4 + 4",
+         "single_process_loss": ref["step"][0],
+         "single_process_peak_gib": single_peak,
+         "single_process_memory": ref["memory"],
+         "peak_gib_depth": depth["depth"]["peak_gib"],
+         "peak_gib_spatial": rows["spatial"]["peak_gib"],
+         **dsp, "bounds": bounds, "seconds": dsp_s})
+    return rows_entries, {n: dsp[n]["launches"] for n in (
+        "depth_spatial", "views_depth_spatial")}
 
 
 def row_block_kernels(torch):
@@ -2118,6 +2190,210 @@ def depth_block_k1(torch):
                     "max_abs_diff_whole_sweep": float(
                         (got - whole[:, :, m * n:(m + 1) * n]).abs().max())})
     return out
+
+
+def write_dtu_tree(root):
+    """A DTU-training tree at the training config, made from the seed
+    (``CACHE_TREE``): 640x512 noise images, a distinct one for each view
+    and light; raw depth and mask at twice the size plus a margin, as the
+    reader half-scales and centre-crops them (the layout of
+    ``tests/test_torch_cli_train.py``'s tree); the training rig's cameras.
+    Returns the scan list file."""
+    from PIL import Image
+    from effi_mvs_plus_tpu_torch.data import cams as camio
+    from effi_mvs_plus_tpu_torch.data.pfm import save_pfm
+    V, H, W = CACHE_TREE["views"], TRAIN["H"], TRAIN["W"]
+    rng = np.random.default_rng(SEED)
+    os.makedirs(os.path.join(root, "Cameras", "train"))
+    with open(os.path.join(root, "Cameras", "pair.txt"), "w") as f:
+        f.write(f"{V}\n")
+        for v in range(V):
+            srcs = sorted((s for s in range(V) if s != v),
+                          key=lambda s: abs(s - v))[:10]
+            f.write(f"{v}\n{len(srcs)} "
+                    + " ".join(f"{s} {100.0 - abs(s - v)}" for s in srcs)
+                    + "\n")
+    intr_q = np.array([[TRAIN["f"], 0, W / 8], [0, TRAIN["f"], H / 8],
+                       [0, 0, 1]], np.float32)
+    for v in range(V):
+        E = np.eye(4, dtype=np.float32)
+        a = TRAIN["ang"] * (v - V // 2)
+        c, s_ = np.cos(a), np.sin(a)
+        E[:3, :3] = np.array([[c, 0, s_], [0, 1, 0], [-s_, 0, c]], np.float32)
+        E[:3, 3] = [st * (v - V // 2) for st in TRAIN["step"]]
+        camio.write_cam_file(os.path.join(
+            root, "Cameras", "train", f"{v:08d}_cam.txt"), E, intr_q,
+            [TRAIN["dmin"], 2.5])
+    scan = CACHE_TREE["scan"]
+    img_dir = os.path.join(root, "Rectified", f"{scan}_train")
+    dep_dir = os.path.join(root, "Depths_raw", scan)
+    os.makedirs(img_dir)
+    os.makedirs(dep_dir)
+    m = CACHE_TREE["margin"]
+    yy, xx = np.mgrid[0:2 * H + m, 0:2 * W + m]
+    for v in range(V):
+        for light in range(CACHE_TREE["lights"]):
+            img = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+            Image.fromarray(img).save(os.path.join(
+                img_dir, f"rect_{v + 1:03d}_{light}_r5000.png"),
+                compress_level=1)
+        d0, a, b = rng.uniform(550, 800), *rng.uniform(-0.05, 0.05, 2)
+        save_pfm(os.path.join(dep_dir, f"depth_map_{v:04d}.pfm"),
+                 np.clip(d0 + a * xx + b * yy, 430, 930).astype(np.float32))
+        Image.fromarray(np.full((2 * H + m, 2 * W + m), 255, np.uint8)).save(
+            os.path.join(dep_dir, f"depth_visual_{v:04d}.png"))
+    listfile = os.path.join(root, "list.txt")
+    with open(listfile, "w") as f:
+        f.write(scan + "\n")
+    return listfile
+
+
+def float_ulps(torch, a, b):
+    """|a - b| in units in the last place, elementwise (fp32, same sign)."""
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def device_cache_phase(torch):
+    """The device cache (``data/device_cache.py``) on the card at the DTU
+    training config, on a tree ``write_dtu_tree`` makes (12 views, 7
+    lights).  Its test-mode batches are held to the ``Loader``'s after
+    ``batch_to_device``: every leaf but the images bit for bit, the images
+    in their bytes (x * 255 rounded) and within one fp32 ulp (the cache
+    rounds x / 255 as the JAX cache, x times the reciprocal); the cache's
+    batches pass through ``batch_to_device`` without a copy.  Then
+    ``cli/train.py main --mode train`` for an epoch (21 steps of B=4 and 3
+    eval batches) fed by the cache and by the ``Loader`` in turns (cache,
+    Loader, cache, Loader), each step timed by CUDA events and by the host
+    clock from one step's end to the next's, with the launch counts of
+    each run.  Returns the first cache-fed run's launch counts."""
+    from effi_mvs_plus_tpu_torch.cli import train as cli
+    from effi_mvs_plus_tpu_torch.data.datasets import DTUTrainDataset
+    from effi_mvs_plus_tpu_torch.data.device_cache import DeviceCacheLoader
+    from effi_mvs_plus_tpu_torch.data.loader import Loader
+    from effi_mvs_plus_tpu_torch.train import trainer as T
+    B, V = TRAIN["B"], TRAIN["V"]
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tree:
+        listfile = write_dtu_tree(tree)
+        write_s = time.perf_counter() - t0
+
+        # test-mode batches: the cache on the card against the Loader
+        t1 = time.perf_counter()
+        ds = DTUTrainDataset(tree, listfile, "test", V)
+        cache = DeviceCacheLoader(ds, B, drop_last=True, device=dev)
+        build_s = time.perf_counter() - t1
+        loader = Loader(ds, B, drop_last=True, num_workers=8)
+        if len(cache) != len(loader):
+            raise AssertionError(f"cache {len(cache)} against Loader "
+                                 f"{len(loader)} batches")
+        img_ulps, off = 0, 0
+        for got, want in zip(cache, loader):
+            want.pop("filename")
+            want = T.batch_to_device(want, dev)
+            for k in ("proj_matrices", "depth", "mask", "depth_values"):
+                g, w = got[k], want[k]
+                pairs = ([(g[j], w[j]) for j in sorted(w)]
+                         if isinstance(w, dict) else [(g, w)])
+                if (isinstance(w, dict) and sorted(g) != sorted(w)) or not all(
+                        a.dtype == b.dtype and torch.equal(a, b)
+                        for a, b in pairs):
+                    raise AssertionError(f"device cache: {k} differs from "
+                                         f"the Loader's")
+            gi, wi = got["imgs"], want["imgs"]
+            ulps = float_ulps(torch, gi, wi)
+            img_ulps = max(img_ulps, int(ulps.max()))
+            off += int((ulps > 0).sum())
+            if not (torch.equal(torch.round(gi * 255), torch.round(wi * 255))
+                    and img_ulps <= 1):
+                raise AssertionError(f"device cache: images {img_ulps} ulps "
+                                     f"from the Loader's")
+            moved = T.batch_to_device(got, dev)
+            if not (moved["imgs"] is gi
+                    and moved["depth"]["stage4"] is got["depth"]["stage4"]):
+                raise AssertionError("batch_to_device copied a batch "
+                                     "already on the card")
+        n_px = len(cache) * gi.numel()
+        test_bytes = cache.nbytes()
+        del cache, got, want, moved, gi, wi
+        torch.cuda.empty_cache()
+
+        # training through the CLI, fed by the cache and by the Loader
+        made = []
+        real = cli.device_cache_loaders
+
+        def recording(*args, **kwargs):
+            made.append(real(*args, **kwargs))
+            return made[-1]
+        steps, evals = (CACHE_TREE["views"] * CACHE_TREE["lights"] // B,
+                        CACHE_TREE["views"] // B)
+        want = {"k1_launches": 3 * (steps + evals),
+                "k2_launches": 9 * (steps + evals), "k3_launches": 3 * steps,
+                "k4_launches": 8 * evals}
+        runs = []
+        cli.device_cache_loaders = recording
+        try:
+            for i, cached in enumerate((True, False, True, False)):
+                argv = ["--mode", "train", "--device", "cuda", "--trainpath",
+                        tree, "--trainlist", listfile, "--testlist",
+                        listfile, "--logdir", os.path.join(tree, f"run{i}"),
+                        "--epochs", "1", "--batch_size", str(B),
+                        "--trainviews", str(V), "--testviews", str(V),
+                        "--summary_freq", "7", "--num_workers", "8",
+                        "--loadckpt", os.path.join(
+                            os.path.dirname(os.path.abspath(__file__)),
+                            "checkpoints", "model_dtu.npz")]
+                step_ms, done, n, secs = timed_cli(
+                    torch, argv + (["--device_cache"] if cached else []))
+                if len(step_ms) != steps or n != want:
+                    raise AssertionError(f"device cache run {i}: "
+                                         f"{len(step_ms)} steps, launches "
+                                         f"{n} (want {want})")
+                timed = step_ms[1:]          # the first step warms up
+                wall = [(done[j] - done[j - 1]) * 1e3
+                        for j in range(2, len(done))]
+                runs.append({
+                    "fed_by": "device cache" if cached else "Loader",
+                    "samples_per_s": B / (statistics.median(timed) / 1e3),
+                    "wall_samples_per_s": B / (statistics.median(wall)
+                                               / 1e3),
+                    "step_ms": timed, "wall_step_ms": wall, **n,
+                    "cli_seconds": secs})
+        finally:
+            cli.device_cache_loaders = real
+        train_cache, eval_cache = made[0]
+        out = {"phase": "device_cache",
+               "config": "dtu train B4 V5 640x512 48/8/8 fp32",
+               "tree": f"{CACHE_TREE['views']} views x "
+                       f"{CACHE_TREE['lights']} lights, written from the "
+                       f"seed",
+               "write_seconds": write_s, "test_cache_build_seconds": build_s,
+               "test_batches_vs_loader": {
+                   "batches": len(loader), "other_leaves": "bitwise",
+                   "img_bytes": "equal", "img_max_ulps": img_ulps,
+                   "img_share_one_ulp_off": off / n_px},
+               "cache_bytes": {"train": train_cache.nbytes(),
+                               "eval": eval_cache.nbytes(),
+                               "test_mode_check": test_bytes},
+               "runs": runs,
+               "cache_samples_per_s": [r["samples_per_s"] for r in runs
+                                       if r["fed_by"] != "Loader"],
+               "loader_samples_per_s": [r["samples_per_s"] for r in runs
+                                        if r["fed_by"] == "Loader"],
+               "cache_wall_samples_per_s": [
+                   r["wall_samples_per_s"] for r in runs
+                   if r["fed_by"] != "Loader"],
+               "loader_wall_samples_per_s": [
+                   r["wall_samples_per_s"] for r in runs
+                   if r["fed_by"] == "Loader"],
+               "seconds": time.perf_counter() - t0}
+        del made, train_cache, eval_cache
+    torch.cuda.empty_cache()
+    for r in out["runs"]:
+        for k in ("step_ms", "wall_step_ms"):
+            r[k] = [round(x, 3) for x in r[k]]
+    log(out)
+    return runs[0]
 
 
 def entry_phase(torch):

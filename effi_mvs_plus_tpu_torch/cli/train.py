@@ -20,19 +20,21 @@ checkpoint.  Runs on ``--device`` (``cuda`` unless told otherwise).
   ``--batch_size`` is the global batch, each data rank reads its own
   shard of the samples and takes ``batch_size / data`` of them a step,
   and with ``--model_parallel > 1`` the model ranks split the source
-  views, the cost volume's hypotheses, the image rows, or the views with
-  one of the others (``--shard_policy``, ``views,depth`` by default, as
-  the JAX CLI's).  Checkpoints and the metrics JSONL are written by
+  views, the cost volume's hypotheses, the image rows, or any
+  combination of them (``--shard_policy``, ``views,depth`` by default,
+  as the JAX CLI's).  Checkpoints and the metrics JSONL are written by
   rank 0.
+* ``--device_cache`` holds the DTU training and eval sets on the device
+  and assembles the batches there (``data/device_cache.py``); on a grid
+  of ranks each rank builds the cache on its own GPU, walks the same
+  global batches and keeps its data rank's rows of each.
 
-Refused with an error, before any work: ``--device_cache``
-(``data/device_cache.py`` of the JAX package hid a slow host link of the
-machine it was written for; a GPU host has no such link),
-``--shard_policy depth,spatial`` (ROADMAP A11d), a depth split of
-``--ndepths`` over ``--model_parallel`` into blocks the 3-D U-Net's
-halos cannot serve (``parallel.depth_split_error``) and a row split of
-the images that leaves a model rank no rows
-(``parallel.row_split_error``).
+Refused with an error, before any work: a depth split of ``--ndepths``
+over ``--model_parallel`` into blocks the 3-D U-Net's halos cannot serve
+(``parallel.depth_split_error``), a row split of the images that leaves a
+model rank no rows (``parallel.row_split_error``), and
+``--device_cache`` for a dataset other than DTU training or for
+processes on several hosts (the JAX package's cache holds neither).
 
 Usage:
   python -m effi_mvs_plus_tpu_torch.cli.train --mode train \
@@ -59,13 +61,6 @@ import os
 import time
 
 import torch
-
-# the device cache of the JAX package, and why the port has none
-NO_DEVICE_CACHE = ("--device_cache is not ported: the JAX package's "
-                   "data/device_cache.py hid a slow host-to-device link of "
-                   "the machine it was written for; a GPU host has no such "
-                   "link, so the Loader feeds the card directly")
-
 
 def build_parser(profile_name="dtu_train"):
     from effi_mvs_plus_tpu_torch.config import (apply_profile_defaults,
@@ -109,7 +104,8 @@ def build_parser(profile_name="dtu_train"):
                         "values centre-crop the images and shift the "
                         "principal point to match")
     p.add_argument("--device_cache", action="store_true",
-                   help="refused: the Loader feeds the card directly")
+                   help="hold the DTU train/eval sets on the device and "
+                        "assemble batches there (single host)")
     p.add_argument("--data_parallel", type=int, default=None,
                    help="ranks on the data axis (default: all of them over "
                         "--model_parallel)")
@@ -123,8 +119,8 @@ def build_parser(profile_name="dtu_train"):
                         "every stage's hypotheses through the 3-D U-Net "
                         "and the CSP blocks, with halos along D), spatial "
                         "(each rank a block of image rows of every "
-                        "activation, with halos along H); depth,spatial "
-                        "is refused")
+                        "activation, with halos along H); with several, "
+                        "each tensor along one of them")
     profile = get_profile(profile_name)
     apply_profile_defaults(p, profile)
     if len(profile.lists) == 2:   # the repo's scan lists: train, then eval
@@ -136,12 +132,11 @@ def build_parser(profile_name="dtu_train"):
 
 
 def _refuse_unported(args):
-    """Refuse what stays unported, with the reason, before any work."""
+    """Refuse a layout or a split the port does not take, with the reason,
+    before any work."""
     from effi_mvs_plus_tpu_torch.models.effi_mvs import stage_depth_multiple
     from effi_mvs_plus_tpu_torch.parallel import (depth_split_error,
                                                   layout_kinds)
-    if args.device_cache:
-        raise SystemExit(NO_DEVICE_CACHE)
     try:
         kinds = layout_kinds(args.shard_policy)
     except ValueError as e:
@@ -286,14 +281,23 @@ def main(argv=None):
     test_idx = shard_indices(len(test_ds), policy)
     n_test = len(test_ds) if test_idx is None else len(test_idx)
     eval_bs = bs if n_test >= bs else max(1, n_test)
-    train_loader = Loader(train_ds, bs, shuffle=True,
-                          num_workers=args.num_workers, drop_last=True,
-                          seed=args.seed, indices=train_idx)
-    test_loader = Loader(test_ds, eval_bs, shuffle=False, drop_last=True,
-                         num_workers=args.num_workers, indices=test_idx)
+    main_rank = parallel.is_main()
+    if args.device_cache:
+        train_loader, test_loader = device_cache_loaders(
+            args, train_ds, test_ds, eval_bs * data, policy, dev)
+        if main_rank:
+            print(f"device cache: {train_loader.nbytes() / 1e9:.2f} GB "
+                  f"train + {test_loader.nbytes() / 1e9:.2f} GB eval",
+                  flush=True)
+    else:
+        train_loader = Loader(train_ds, bs, shuffle=True,
+                              num_workers=args.num_workers, drop_last=True,
+                              seed=args.seed, indices=train_idx)
+        test_loader = Loader(test_ds, eval_bs, shuffle=False,
+                             drop_last=True, num_workers=args.num_workers,
+                             indices=test_idx)
 
     model, payload, start_epoch = load_model(args, cfg, dev)
-    main_rank = parallel.is_main()
     if main_rank:
         print(f"model parameters: "
               f"{sum(p.numel() for p in model.parameters())}")
@@ -353,6 +357,30 @@ def main(argv=None):
     if writer is not None:
         writer.close()
     parallel.barrier()
+
+
+def device_cache_loaders(args, train_ds, test_ds, eval_batch, policy, dev):
+    """The train and eval ``DeviceCacheLoader``s on ``dev``, as the JAX
+    CLI builds them (global batches of ``--batch_size`` and
+    ``eval_batch``), each rank keeping its data rank's rows; refused, with
+    the reason, across hosts (the JAX CLI asserts one process)."""
+    from effi_mvs_plus_tpu_torch import parallel
+    from effi_mvs_plus_tpu_torch.data.device_cache import DeviceCacheLoader
+    if parallel.hosts() > 1:
+        raise SystemExit(f"--device_cache holds the set on one host's "
+                         f"GPUs; these {parallel.world_size()} processes "
+                         f"run on {parallel.hosts()} hosts (the JAX "
+                         f"package's cache is single-host too)")
+    shard = (1, 0) if policy is None else (policy.mesh.data,
+                                           policy.mesh.data_rank)
+    try:
+        return (DeviceCacheLoader(train_ds, args.batch_size, shuffle=True,
+                                  seed=args.seed, drop_last=True,
+                                  device=dev, shard=shard),
+                DeviceCacheLoader(test_ds, eval_batch, drop_last=True,
+                                  device=dev, shard=shard))
+    except ValueError as e:
+        raise SystemExit(f"--device_cache: {e}")
 
 
 def load_model(args, cfg, dev):

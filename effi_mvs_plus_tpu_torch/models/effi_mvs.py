@@ -51,10 +51,18 @@ on its rows of the images, the warps on its rows of the reference
 against the whole source features (gathered along H, ``par.gather_rows``;
 the kernels take the block's first row ``y0``), ``PixelwiseNet``,
 ``CostRegNet``, the CSP and update blocks with row halos; the 13 depth
-maps and the confidence are gathered along H at the end.  With views as
-well (``views,spatial``) the FPN, the warps and ``PixelwiseNet`` run
-this rank's views over all rows, and the rank keeps its rows of the view
-sums.  Without a policy the hooks are identities.
+maps and the confidence are gathered along H at the end.  Where another
+layout shares the model axis with spatial, the part it splits runs over
+all rows and each rank keeps its rows of what that part gives: with
+views (``views,spatial``) the FPN, the warps and ``PixelwiseNet`` run
+this rank's views; with depth (``depth,spatial``) the warps run this
+rank's D-block against reference and source features gathered along H,
+and ``CostRegNet`` and the CSP blocks the D-block of the volumes
+(``par.row_blocks(False)``); ``PixelwiseNet`` then takes its rows of the
+entropy and its view weights are gathered along H.  Both at once
+(``views,depth,spatial``): the views for the FPN, the warps and
+``PixelwiseNet``, D for the summed volumes, the rows for the GRU.
+Without a policy the hooks are identities.
 """
 
 from __future__ import annotations
@@ -200,25 +208,39 @@ class EffiMVS(tnn.Module):
             return torch.cat([x[:, :1], x[:, 1 + start:1 + stop]], 1)
         imgs_own = own_views(imgs)
         Vo = imgs_own.shape[1]
-        # under spatial sharding, this rank's rows; with views as well, the
-        # views part (FPN, warps, PixelwiseNet) runs on all rows and keeps
-        # its rows of the view sums (``keep``)
-        views_split = (start, stop) != (0, V - 1)
+        # under spatial sharding the 2-D part runs on this rank's rows, and
+        # the part another layout splits over all rows: with views, the
+        # FPN, the warps and PixelwiseNet; with depth, the warps and the
+        # 3-D part.  With depth alone the warps' inputs come from the FPN
+        # on rows and are gathered along H (``gather_in``); with views
+        # alone the 3-D part takes its rows of the warps' output
+        # (``rows_out``).  ``keep`` takes this rank's rows of a tensor of
+        # all rows where ``on`` (all of them without spatial sharding)
+        views_all = (start, stop) != (0, V - 1)
+        depth_all = par.depth_sharded()
+        warp_all = views_all or depth_all
+        gather_in = depth_all and not views_all
+        rows_out = views_all and not depth_all
         rows = par.row_slice(H)
-        if not views_split:
+        if not views_all:
             imgs_own = imgs_own[:, :, rows]
 
-        def keep(x, axis):
-            if not views_split:
+        def keep(x, axis, on):
+            if not on:
                 return x
             sl = [slice(None)] * x.dim()
             sl[axis] = par.row_slice(x.shape[axis])
             return x[tuple(sl)]
 
+        def gru_rows(x):
+            """A volume (or its per-pixel range) on the 3-D part's rows ->
+            this rank's rows; per-batch scalars as they are."""
+            return keep(x, 2, depth_all and x.shape[2] > 1)
+
         # feature extraction: the views through the FPN in one batch, with
         # per-view BN statistics in train mode
         with par.view_stats(V - 1, has_ref=True), \
-                par.row_blocks(not views_split):
+                par.row_blocks(not views_all):
             feats = self.feature(
                 imgs_own.reshape(B * Vo, *imgs_own.shape[2:]),
                 stat_groups=Vo)
@@ -242,20 +264,21 @@ class EffiMVS(tnn.Module):
 
         for s in range(cfg.num_stage):
             f = feats[f"stage{s + 1}"]                       # (B,Vo,h,w,C)
-            h, w = f.shape[2], f.shape[3]
             P = geometry.compose_projection(                 # (B,Vo,4,4)
                 own_views(proj_matrices[f"stage{s + 1}"]).float())
-            ref_fea = f[:, 0]
             interval_s = depth_interval * cfg.depth_intervals_ratio[s]
             rots, trs = _relative_projections(P)
             # the warps: ref rows y0 .. y0 + h - 1 against the whole source
-            # features (a row block against the gathered sources under
-            # spatial sharding)
-            src = f[:, 1:]
+            # features (under spatial sharding, gathered along H; where the
+            # warps run over all rows, the reference too)
+            ref_fea, src = f[:, 0], f[:, 1:]
             y0 = 0
-            if not views_split:
+            if gather_in:
+                ref_fea, src = par.gather_rows(ref_fea, src, axis=-3)
+            elif not views_all:
                 (src,) = par.gather_rows(src, axis=2)
                 y0 = par.row_slice(src.shape[2]).start or 0
+            h, w = ref_fea.shape[1], ref_fea.shape[2]
 
             def warp(depth, ref_fea=ref_fea, src=src, rots=rots, trs=trs,
                      y0=y0):
@@ -273,25 +296,35 @@ class EffiMVS(tnn.Module):
                     depth_values, cfg.ndepths[0], 1, 1)
                 depth_hyps = (1.0 / drs).expand(B, cfg.ndepths[0], h, w)
                 sims = warp(depth_hyps[:, pre])              # (B,Vo-1,D,h,w)
-                entropy = _sweep_entropy(sims)
+                # PixelwiseNet on this rank's rows of the entropy, unless
+                # the views run over all rows; its view weights gathered
+                # for the warps' rows
+                entropy = keep(_sweep_entropy(sims), 2, gather_in)
                 with par.view_stats(V - 1, has_ref=False), \
-                        par.row_blocks(not views_split):
+                        par.row_blocks(not views_all):
                     vw = self.PixelwiseNet(
-                        entropy.reshape(B * (Vo - 1), h, w, 1).to(dt),
+                        entropy.reshape(B * (Vo - 1), *entropy.shape[2:],
+                                        1).to(dt),
                         stat_groups=Vo - 1)
-                view_weights = vw.reshape(B, Vo - 1, h, w)
+                view_weights = vw.reshape(B, Vo - 1, *entropy.shape[2:])
+                if gather_in:
+                    (view_weights,) = par.gather_rows(view_weights, axis=2)
                 vw_ = view_weights[:, :, None]               # (B,Vo-1,1,h,w)
                 sim_sum, w_sum = par.sum_views(
                     torch.sum(sims * vw_, dim=1),            # (B,D,h,w)
                     torch.sum(vw_, dim=1))                   # (B,1,h,w)
-                similarity = keep(sim_sum / (w_sum + 1e-6),
-                                  2)[:, post][..., None]
+                # the 3-D part: on this rank's rows, or on all rows where
+                # depth splits it
+                similarity = keep(sim_sum / (w_sum + 1e-6), 2,
+                                  rows_out)[:, post][..., None]
 
-                prob_pre, _ = self.cost_regularization(similarity.to(dt))
+                with par.row_blocks(not depth_all):
+                    prob_pre, _ = self.cost_regularization(similarity.to(dt))
                 reg_volume, cur_volume = par.gather_depths(
                     prob_pre.float(), similarity[..., 0].float())
-                prob = torch.softmax(reg_volume, dim=1)
-                init_depth = depth_regression(prob, keep(depth_hyps, 2))
+                prob = torch.softmax(gru_rows(reg_volume), dim=1)
+                init_depth = depth_regression(prob,
+                                              keep(depth_hyps, 2, warp_all))
                 conf = photometric_confidence(prob)
                 photometric_confidence_map = _repeat2x_hw(
                     _repeat2x_hw(conf, 1, 2), 1, 2)          # x4 nearest
@@ -304,10 +337,10 @@ class EffiMVS(tnn.Module):
                 # ----- dynamic cost volume around the current depth -----
                 cur_depth = depth_predictions[-1].detach()
                 view_weights = _repeat2x_hw(view_weights, 2, 3)
-                # the depths the warps take: all rows where the views part
-                # runs on all rows (views,spatial), else this rank's
+                # the depths the warps take: all rows where the warps run
+                # over all rows, else this rank's
                 (warp_depth,) = (par.gather_rows(cur_depth, axis=1)
-                                 if views_split else (cur_depth,))
+                                 if warp_all else (cur_depth,))
                 drs_disp = geometry.depth_range_samples_local(
                     1.0 / warp_depth, cfg.ndepths[s], _bshape(interval_s, 3))
                 depth_samples = 1.0 / drs_disp               # (B,8,h,w)
@@ -317,8 +350,9 @@ class EffiMVS(tnn.Module):
                 sim_sum, w_sum = par.sum_views(torch.sum(sims * vw_, dim=1),
                                                torch.sum(vw_, dim=1))
                 # (B,8,h,w,1), or this rank's D-block or row block of it
-                fresh = keep(sim_sum / (w_sum + 1e-6), 2)[:, post][..., None]
-                depth_samples = keep(depth_samples, 2)
+                fresh = keep(sim_sum / (w_sum + 1e-6), 2,
+                             rows_out)[:, post][..., None]
+                depth_samples = keep(depth_samples, 2, rows_out)
 
                 new_dmax = depth_samples[:, 0:1]             # (B,1,h,w)
                 new_dmin = depth_samples[:, -1:]
@@ -328,12 +362,13 @@ class EffiMVS(tnn.Module):
                 ds_low = depth_samples[:, pre][:, post, ::2, ::2]
                 reg_low = resample_volume_at_depths(
                     reg_volume, ds_low, vol_dmin, vol_dmax)
-                reg_volume = getattr(self, f"CSP_R{s}")(
-                    fresh.to(dt), reg_low[..., None].to(dt)).float()
                 cur_low = resample_volume_at_depths(
                     cur_volume, ds_low, vol_dmin, vol_dmax)
-                cur_volume = getattr(self, f"CSP_C{s}")(
-                    fresh.to(dt), cur_low[..., None].to(dt)).float()
+                with par.row_blocks(not depth_all):
+                    reg_volume = getattr(self, f"CSP_R{s}")(
+                        fresh.to(dt), reg_low[..., None].to(dt)).float()
+                    cur_volume = getattr(self, f"CSP_C{s}")(
+                        fresh.to(dt), cur_low[..., None].to(dt)).float()
                 reg_volume, cur_volume = par.gather_depths(reg_volume,
                                                            cur_volume)
                 vol_dmin, vol_dmax = new_dmin, new_dmax
@@ -342,9 +377,10 @@ class EffiMVS(tnn.Module):
             inv_cur_depth = geometry.depth_to_disp(
                 cur_depth, _bshape(depth_min_g, 3), _bshape(depth_max_g, 3))
 
-            def get_cost(depth, cur_volume=cur_volume, reg_volume=reg_volume,
-                         vol_dmin=vol_dmin, vol_dmax=vol_dmax,
-                         interval_s=interval_s):
+            def get_cost(depth, cur_volume=gru_rows(cur_volume),
+                         reg_volume=gru_rows(reg_volume),
+                         vol_dmin=gru_rows(vol_dmin),
+                         vol_dmax=gru_rows(vol_dmax), interval_s=interval_s):
                 """depth (B,h,w,1) -> (B,h,w,CostNum*cost_num) lookup."""
                 drs = geometry.depth_range_samples_local(
                     1.0 / depth[..., 0], cfg.CostNum, _bshape(interval_s, 3))

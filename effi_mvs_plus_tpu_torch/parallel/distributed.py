@@ -15,6 +15,7 @@ with ``torch.distributed``: NCCL between GPUs, gloo on the CPU.
 * ``mean_metrics()`` — the mean of scalar metrics over the processes,
                        symmetric: every rank gets it
 * ``partition()``    — a static round-robin split of work items
+* ``hosts()``        — the machines the processes run on
 * ``is_main()``, ``barrier()``
 """
 
@@ -75,6 +76,13 @@ def world_size() -> int:
 
 def rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
+
+
+def hosts() -> int:
+    """The machines the processes run on: the world over the processes of
+    this one (torchrun's ``LOCAL_WORLD_SIZE``; all of them without it)."""
+    world = world_size()
+    return world // int(_env("LOCAL_WORLD_SIZE", default=str(world)))
 
 
 def is_main() -> bool:

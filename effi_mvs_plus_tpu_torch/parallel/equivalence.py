@@ -19,9 +19,12 @@ confidence within 5e-3.
 The layouts (``LAYOUTS``) are the data axis, the source views, the
 cost volume's hypotheses (``depth``, and ``views_depth``, the JAX CLI's
 default) and the image rows (``spatial``, ``views_spatial``) over the
-model axis, and their combinations.  A layout may take a batch of its
-own height (``ROW_HEIGHTS``: four row blocks need more rows than the
-gate's 64, and ``spatial_uneven`` splits 96 rows as 32 + 64), held
+model axis, and their combinations (``depth_spatial``,
+``views_depth_spatial``, ``data_depth_spatial``, ``depth_spatial4``: the
+2-D activations by rows, the volumes by hypotheses).  A layout may take
+a batch of its own height (``ROW_HEIGHTS``: four row blocks need more
+rows than the gate's 64, and ``spatial_uneven`` splits 96 rows as
+32 + 64), held
 against the single process's step on that batch (``references``).
 ``engine`` and ``engine_spatial`` are the view- and row-sharded engines'
 maps.
@@ -58,11 +61,15 @@ LAYOUTS = {"data": (2, 1, "views"), "views": (1, 2, "views"),
            "views_spatial": (1, 2, "views,spatial"),
            "data_spatial": (2, 2, "spatial"),
            "spatial4": (1, 4, "spatial"),
-           "spatial_uneven": (1, 2, "spatial")}
+           "spatial_uneven": (1, 2, "spatial"),
+           "depth_spatial": (1, 2, "depth,spatial"),
+           "views_depth_spatial": (1, 2, "views,depth,spatial"),
+           "data_depth_spatial": (2, 2, "depth,spatial"),
+           "depth_spatial4": (1, 4, "depth,spatial")}
 # image rows of the layouts that take a batch of their own height: 128
 # rows give four ranks 32 each (stage 1: 4 + 4 + 4 + 4), 96 rows two
 # unequal blocks (stage 1: 4 + 8)
-ROW_HEIGHTS = {"spatial4": 128, "spatial_uneven": 96}
+ROW_HEIGHTS = {"spatial4": 128, "spatial_uneven": 96, "depth_spatial4": 128}
 # the engines of the model-axis layouts: name -> InferenceEngine's
 # shard_policy
 ENGINES = {"engine": "views", "engine_spatial": "spatial"}

@@ -41,6 +41,16 @@ process group.
   the views take precedence for the FPN, the warps and ``PixelwiseNet``,
   which run a block of the views over all rows, and each rank keeps its
   rows of the view sums from there on.
+* ``model``, layouts ``depth,spatial`` and ``views,depth,spatial`` — as
+  in JAX, one model axis and no tensor split along two: the 2-D
+  activations (the FPN, the context net, ``PixelwiseNet``, the GRU) are
+  split by rows, the cost volumes by hypotheses.  The warps run on the
+  rank's D-block of every view (with views: all D of its views) over all
+  rows, against reference and source features gathered along H; the
+  3-D U-Net and the CSP blocks run on the D-block over all rows
+  (``row_blocks(False)``), and after ``gather_depths`` each rank keeps
+  its rows of the whole volumes for the rest.  A module inside both
+  ``depth_blocks`` and ``row_blocks`` raises (``_blocked``).
 
 GSPMD inserts these collectives for the JAX package.  The port writes
 them out, each as an all_reduce of zero-padded blocks (exact, and the one
@@ -53,7 +63,7 @@ split that leaves a rank no rows (``row_split_error``).
 
 The model calls the module-level hooks, which do nothing unless a
 ``ShardingPolicy`` is active (``use_policy``), so a single process pays
-nothing.  ``depth,spatial`` is refused (``layout_kinds``; ROADMAP A11d).
+nothing.
 """
 
 from __future__ import annotations
@@ -190,20 +200,16 @@ def view_blocks(n_src, parts):
     return list(zip(starts[:-1], starts[1:]))
 
 
-# the JAX package's model-axis layouts the port has, and the combination
-# it refuses, with why
+# the JAX package's model-axis layouts; a policy takes any non-empty
+# subset of them, as the JAX CLI builds it
 PORTED_LAYOUTS = ("views", "depth", "spatial")
-NO_DEPTH_SPATIAL = ("depth,spatial is not ported: it would split one cost "
-                    "volume along D and along H at once (the JAX package's "
-                    "volume() lets D take precedence); ROADMAP A11d.  Use "
-                    "views,depth or views,spatial")
 
 
 def layout_kinds(spec):
     """The model-axis layouts of a comma list such as ``"views,depth"``;
-    raises ValueError, with the reason, for a combination the port
-    refuses, for an unknown layout and for an empty list (a model axis
-    that shards nothing would only repeat the work on every rank)."""
+    raises ValueError, with the reason, for an unknown layout and for an
+    empty list (a model axis that shards nothing would only repeat the
+    work on every rank)."""
     kinds = {k.strip() for k in spec.split(",") if k.strip()}
     if not kinds:
         raise ValueError("no model-axis layout given; the port has "
@@ -212,8 +218,6 @@ def layout_kinds(spec):
         if k not in PORTED_LAYOUTS:
             raise ValueError(f"unknown layout {k!r}; the port has views, "
                              f"depth and spatial")
-    if {"depth", "spatial"} <= kinds:
-        raise ValueError(NO_DEPTH_SPATIAL)
     return kinds
 
 
@@ -278,13 +282,11 @@ class ShardingPolicy:
     """The layouts the model hooks apply on a mesh: the batch over the
     data axis; over the model axis the source views (``shard_views``),
     the cost volume's hypotheses (``shard_depth``), the image rows
-    (``shard_spatial``), or the views with one of the others.  A mesh of
-    one model rank shards nothing."""
+    (``shard_spatial``), or several of them, each tensor along one axis.
+    A mesh of one model rank shards nothing."""
 
     def __init__(self, mesh: Mesh, shard_views: bool = True,
                  shard_depth: bool = False, shard_spatial: bool = False):
-        if shard_depth and shard_spatial:
-            raise ValueError(NO_DEPTH_SPATIAL)
         self.mesh = mesh
         self.shard_views = shard_views and mesh.model > 1
         self.shard_depth = shard_depth and mesh.model > 1
@@ -386,13 +388,14 @@ class ShardingPolicy:
 
     def sync_gradients(self, model):
         """Average the gradients over the data group, and those of the
-        model-sharded modules (under spatial, all) over the model group,
-        one flat bucket each.  Within a group every rank computes the same
-        loss (the data group all-reduces the loss's sums, the model group
-        the view sums, the D-blocks or the row blocks), so the backward of
-        those all_reduces sums the ranks' equal gradients: a rank's
-        gradient is the group's size times its own share, and the mean
-        over the group is the sum of the shares.
+        model-sharded modules (under spatial, with or without the others,
+        all: every module runs on a block of rows, views or hypotheses)
+        over the model group, one flat bucket each.  Within a group every
+        rank computes the same loss (the data group all-reduces the loss's
+        sums, the model group the view sums, the D-blocks or the row
+        blocks), so the backward of those all_reduces sums the ranks'
+        equal gradients: a rank's gradient is the group's size times its
+        own share, and the mean over the group is the sum of the shares.
         The replicated rest of the step holds the whole gradient on every
         model rank already."""
         params = [p for p in model.parameters() if p.requires_grad]
@@ -403,8 +406,9 @@ class ShardingPolicy:
             _mean_bucket([p.grad for p in params], self.mesh.data_group,
                          self.mesh.data)
         if self.shard_spatial:
-            # every module runs on a block of rows (or, with views, of
-            # views): each rank holds M times its share of every gradient
+            # every module runs on a block of rows (or, with views or
+            # depth, of views or hypotheses): each rank holds M times its
+            # share of every gradient
             _mean_bucket([p.grad for p in params], self.mesh.model_group,
                          self.mesh.model)
         elif self.shard_views or self.shard_depth:
@@ -566,24 +570,42 @@ def _row_blocked() -> Optional[ShardingPolicy]:
     return _active()
 
 
+def _blocked():
+    """The active policy and the axis, ``"depth"`` or ``"rows"``, of the
+    block that code inside ``depth_blocks`` or ``row_blocks`` runs on, or
+    (None, None).  Raises RuntimeError where both are active: no layout
+    splits a tensor along D and H at once (under ``depth,spatial`` the
+    volume part runs inside ``row_blocks(False)``), and a module there
+    would take halos along both axes and count its BN elements twice."""
+    depth, rows = _depth_blocked(), _row_blocked()
+    if depth is not None and rows is not None:
+        raise RuntimeError(
+            "a module runs inside depth_blocks and row_blocks at once: one "
+            "tensor split along D and H, which no layout does; run the "
+            "volume part inside row_blocks(False)")
+    if depth is not None:
+        return depth, "depth"
+    return (rows, "rows") if rows is not None else (None, None)
+
+
 def depth_parts() -> int:
     """The model ranks that share a volume's D inside ``depth_blocks`` (1
     elsewhere)."""
-    pol = _depth_blocked()
-    return 1 if pol is None else pol.mesh.model
+    pol, axis = _blocked()
+    return pol.mesh.model if axis == "depth" else 1
 
 
 def row_parts() -> int:
     """The model ranks that share the image rows inside ``row_blocks``
     (1 elsewhere)."""
-    pol = _row_blocked()
-    return 1 if pol is None else pol.mesh.model
+    pol, axis = _blocked()
+    return pol.mesh.model if axis == "rows" else 1
 
 
 def reduce_blocks(x):
     """Inside ``depth_blocks`` or ``row_blocks``: x summed over the model
     group, whose ranks hold the other blocks, differentiable."""
-    pol = _depth_blocked() or _row_blocked()
+    pol, _ = _blocked()
     return x if pol is None else _AllReduceSum.apply(x, pol.mesh.model_group)
 
 
@@ -615,9 +637,11 @@ def block_count(n, h_local):
     block holds ``n`` with ``h_local`` rows: n times the D-blocks inside
     ``depth_blocks``, n scaled from this rank's rows to all rows inside
     ``row_blocks``; n elsewhere."""
-    n *= depth_parts()
-    if _row_blocked() is not None:
-        n = n // h_local * _global_rows(h_local)
+    pol, axis = _blocked()
+    if axis == "depth":
+        return n * pol.mesh.model
+    if axis == "rows":
+        return n // h_local * _global_rows(h_local)
     return n
 
 
@@ -692,6 +716,12 @@ def depth_slices(D, multiple=1):
     if pol is None:
         return slice(None), slice(None)
     return pol.depth_slices(D, multiple)
+
+
+def depth_sharded() -> bool:
+    """Whether the active policy splits the cost volumes by hypotheses."""
+    pol = _active()
+    return pol is not None and pol.shard_depth
 
 
 def sweep_max(x):

@@ -9,11 +9,12 @@ the BN running statistics update during the forward.
 
 Each step lives on one device, ``cuda`` unless the caller passes
 ``device="cpu"``, and raises without a GPU; the model must already be on
-that device.  Batches are the loader's numpy pytrees.  With a
-``ShardingPolicy`` (``parallel/mesh.py``) the step runs under it: each
-data rank passes its rows of the global batch, the forward and the loss
-compute what the whole batch computes, and the gradients are averaged
-over the grid's groups before AdamW (``ShardingPolicy.sync_gradients``).
+that device.  Batches are the loader's numpy pytrees or the device
+cache's tensors.  With a ``ShardingPolicy`` (``parallel/mesh.py``) the
+step runs under it: each data rank passes its rows of the global batch,
+the forward and the loss compute what the whole batch computes, and the
+gradients are averaged over the grid's groups before AdamW
+(``ShardingPolicy.sync_gradients``).
 
 Checkpoints are ``model_NNNNNN.ckpt`` files written with ``torch.save``:
 ``{"model", "optimizer", "scheduler", "epoch"}``, where ``"model"`` is the
@@ -38,7 +39,9 @@ _MODEL_INPUTS = ("imgs", "proj_matrices", "depth_values")
 
 def batch_to_device(batch, device):
     """numpy (or torch) pytree -> torch tensors on ``device``; floats
-    become float32, strings and lists of strings stay as they are."""
+    become float32, strings and lists of strings stay as they are.  A
+    float32 (or non-float) tensor already on ``device``, as the device
+    cache's batches, passes through as it is, without a copy."""
     if isinstance(batch, dict):
         return {k: batch_to_device(v, device) for k, v in batch.items()}
     if isinstance(batch, np.ndarray):

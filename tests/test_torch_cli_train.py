@@ -3,8 +3,8 @@ DTU-training tree, on the CPU: the reader's samples equal the JAX
 reader's for the same seed (its resize included), and
 ``cli/train.py --mode train --device cpu`` runs an epoch, writes a
 checkpoint and the metrics JSONL, resumes from the checkpoint, and starts
-from a shipped npz or a port checkpoint; what the CLI still refuses, it
-refuses with its reason."""
+from a shipped npz or a port checkpoint; what the CLI refuses, it refuses
+with its reason, and the layouts and the device cache it takes."""
 
 import functools
 import json
@@ -182,12 +182,11 @@ def test_train_cli_loadckpt(tree, tmp_path, monkeypatch):
 
 
 # what stays refused, and why: fine-tuning needs weights to start from;
-# the device cache served a slow host link the card does not have; depth
-# beside spatial sharding is refused (ROADMAP A11d); a grid needs as many
-# processes as it has ranks.  Spatial sharding is taken: in one process
-# the run goes on to the grid's check, which refuses two model ranks
+# a grid needs as many processes as it has ranks.  The layouts and the
+# device cache are taken: with two model ranks in one process the run
+# goes on to the grid's check, which refuses them
 REFUSED = {"--mode": "requires --loadckpt", "--shard_policy": None,
-           "--device_cache": "no such link",
+           "--device_cache": None,
            "--data_parallel": "needs 2 processes",
            "--model_parallel": "needs 2 processes"}
 
@@ -199,9 +198,8 @@ REFUSED = {"--mode": "requires --loadckpt", "--shard_policy": None,
                                   ["--data_parallel", "2"],
                                   ["--model_parallel", "2"]])
 def test_unported_options_are_refused(flag):
-    why = REFUSED[flag[0]] or {"depth,spatial": "D and along H.*A11d",
-                               "spatial": "needs 2 processes"}[flag[1]]
-    if flag[-1] == "spatial":
+    why = REFUSED[flag[0]] or "needs 2 processes"
+    if REFUSED[flag[0]] is None:
         flag = flag + ["--model_parallel", "2"]
     with pytest.raises(SystemExit, match=why):
         cli.main(flag + ["--device", "cpu"])
