@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on a GPU: serving,
 training, the Tanks & Temples reconstruction chain, BlendedMVS
-fine-tuning, multi-process parallelism and the device cache.
+fine-tuning, multi-process parallelism, the device cache and a JAX
+training run carried across.
 
     python3 chip_smoke.py
 
@@ -110,13 +111,26 @@ imports nothing of JAX.  It
    step; K4 in the eval forwards) and its samples/s by CUDA events and
    by the host clock from one step's end to the next's, and the cache's
    bytes;
-10. runs the compile-check entry (``entry.py``): ``entry()``'s forward on
+10. (``jax_checkpoint``) carries a JAX training run onto the card with no
+   JAX, optax or orbax here: ``tests/jax_pickle.py`` writes the JAX train
+   CLI's pickle (the shipped DTU weights in the JAX layouts, the AdamW
+   moments of 21 seeded updates, the optax classes named as in a real
+   file) into a logdir on the same tree; ``cli/train.py main --resume``
+   continues it at epoch 1 for 21 steps at the DTU training config (K1 3,
+   K2 9, K3 3 a step; K4 in the eval forwards), with the moments, AdamW
+   steps and learning rate read at the first resumed step and that step's
+   loss and gradients held against the plain path; then the carried
+   weights serve through ``InferenceEngine(device="cuda")`` at the DTU
+   eval config (K1, K2, K4), the 13 maps and the confidence bitwise the
+   npz-loaded engine's;
+11. runs the compile-check entry (``entry.py``): ``entry()``'s forward on
    the card against the CPU, and ``dryrun_multichip(2)``;
-11. prints each phase's seconds, a ``{"kernels": [...]}`` line (K2 and K4
+12. prints each phase's seconds, a ``{"kernels": [...]}`` line (K2 and K4
    entries name the CUDA route of each layer in ``cuda_route``: ``mma``
    on the tensor cores, ``fma`` on the CUDA cores; K1-K4 carry their
-   launches in the cache-fed run and K1-K3 in a ``depth,spatial`` rank's
-   step), the card's name and power limit, then the device line last.
+   launches in the cache-fed run, in the resumed JAX run and its served
+   forward, and K1-K3 in a ``depth,spatial`` rank's step), the card's
+   name and power limit, then the device line last.
 
 Any failure raises and the exit code is nonzero.  Without a GPU it exits
 1 and prints no result.
@@ -486,8 +500,15 @@ def run(torch, card):
         rows_entries, dsp_launches = distributed_phase(torch, tree,
                                                        listfile, sd)
         seconds["distributed"] = lap()
-    cache = device_cache_phase(torch)
-    seconds["device_cache"] = lap()
+    with tempfile.TemporaryDirectory() as dtu_tree:
+        t0 = time.perf_counter()
+        dtu_list = write_dtu_tree(dtu_tree)
+        cache = device_cache_phase(torch, dtu_tree, dtu_list,
+                                   time.perf_counter() - t0)
+        seconds["device_cache"] = lap()
+        jax_resume, jax_serve = jax_checkpoint_phase(torch, root, dtu_tree,
+                                                     dtu_list, sd)
+        seconds["jax_checkpoint"] = lap()
     entry_phase(torch)
     seconds["entry"] = lap()
 
@@ -505,6 +526,9 @@ def run(torch, card):
             e["launches_train"] = train[name]
             e["launches_tnt"] = tank[name]
         e["launches_device_cache"] = cache[name]
+        e["launches_jax_checkpoint_resume"] = jax_resume[name]
+        if name != "k3_launches":
+            e["launches_jax_checkpoint_serve"] = jax_serve[name]
         e["launches_depth_spatial_rank"] = dsp_launches["depth_spatial"][
             name[:2]]
     for e in chain_entries:
@@ -512,6 +536,8 @@ def run(torch, card):
         e["launches_tnt"] = tank["k4_launches"]
         e["launches_finetune_test"] = test["k4_launches"]
         e["launches_device_cache"] = cache["k4_launches"]
+        e["launches_jax_checkpoint_resume"] = jax_resume["k4_launches"]
+        e["launches_jax_checkpoint_serve"] = jax_serve["k4_launches"]
     log({"phase": "seconds", **seconds,
          "total": time.perf_counter() - t_run})
     print(json.dumps({"kernels": entries + chain_entries + rows_entries}),
@@ -2253,14 +2279,15 @@ def float_ulps(torch, a, b):
     return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
 
 
-def device_cache_phase(torch):
+def device_cache_phase(torch, tree, listfile, write_s):
     """The device cache (``data/device_cache.py``) on the card at the DTU
-    training config, on a tree ``write_dtu_tree`` makes (12 views, 7
-    lights).  Its test-mode batches are held to the ``Loader``'s after
-    ``batch_to_device``: every leaf but the images bit for bit, the images
-    in their bytes (x * 255 rounded) and within one fp32 ulp (the cache
-    rounds x / 255 as the JAX cache, x times the reciprocal); the cache's
-    batches pass through ``batch_to_device`` without a copy.  Then
+    training config, on a tree ``write_dtu_tree`` made (12 views, 7
+    lights, in ``write_s`` seconds).  Its test-mode batches are held to
+    the ``Loader``'s after ``batch_to_device``: every leaf but the images
+    bit for bit, the images in their bytes (x * 255 rounded) and within
+    one fp32 ulp (the cache rounds x / 255 as the JAX cache, x times the
+    reciprocal); the cache's batches pass through ``batch_to_device``
+    without a copy.  Then
     ``cli/train.py main --mode train`` for an epoch (21 steps of B=4 and 3
     eval batches) fed by the cache and by the ``Loader`` in turns (cache,
     Loader, cache, Loader), each step timed by CUDA events and by the host
@@ -2273,127 +2300,330 @@ def device_cache_phase(torch):
     from effi_mvs_plus_tpu_torch.train import trainer as T
     B, V = TRAIN["B"], TRAIN["V"]
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tree:
-        listfile = write_dtu_tree(tree)
-        write_s = time.perf_counter() - t0
+    t0 = time.perf_counter() - write_s
 
-        # test-mode batches: the cache on the card against the Loader
-        t1 = time.perf_counter()
-        ds = DTUTrainDataset(tree, listfile, "test", V)
-        cache = DeviceCacheLoader(ds, B, drop_last=True, device=dev)
-        build_s = time.perf_counter() - t1
-        loader = Loader(ds, B, drop_last=True, num_workers=8)
-        if len(cache) != len(loader):
-            raise AssertionError(f"cache {len(cache)} against Loader "
-                                 f"{len(loader)} batches")
-        img_ulps, off = 0, 0
-        for got, want in zip(cache, loader):
-            want.pop("filename")
-            want = T.batch_to_device(want, dev)
-            for k in ("proj_matrices", "depth", "mask", "depth_values"):
-                g, w = got[k], want[k]
-                pairs = ([(g[j], w[j]) for j in sorted(w)]
-                         if isinstance(w, dict) else [(g, w)])
-                if (isinstance(w, dict) and sorted(g) != sorted(w)) or not all(
-                        a.dtype == b.dtype and torch.equal(a, b)
-                        for a, b in pairs):
-                    raise AssertionError(f"device cache: {k} differs from "
-                                         f"the Loader's")
-            gi, wi = got["imgs"], want["imgs"]
-            ulps = float_ulps(torch, gi, wi)
-            img_ulps = max(img_ulps, int(ulps.max()))
-            off += int((ulps > 0).sum())
-            if not (torch.equal(torch.round(gi * 255), torch.round(wi * 255))
-                    and img_ulps <= 1):
-                raise AssertionError(f"device cache: images {img_ulps} ulps "
-                                     f"from the Loader's")
-            moved = T.batch_to_device(got, dev)
-            if not (moved["imgs"] is gi
-                    and moved["depth"]["stage4"] is got["depth"]["stage4"]):
-                raise AssertionError("batch_to_device copied a batch "
-                                     "already on the card")
-        n_px = len(cache) * gi.numel()
-        test_bytes = cache.nbytes()
-        del cache, got, want, moved, gi, wi
-        torch.cuda.empty_cache()
+    # test-mode batches: the cache on the card against the Loader
+    t1 = time.perf_counter()
+    ds = DTUTrainDataset(tree, listfile, "test", V)
+    cache = DeviceCacheLoader(ds, B, drop_last=True, device=dev)
+    build_s = time.perf_counter() - t1
+    loader = Loader(ds, B, drop_last=True, num_workers=8)
+    if len(cache) != len(loader):
+        raise AssertionError(f"cache {len(cache)} against Loader "
+                             f"{len(loader)} batches")
+    img_ulps, off = 0, 0
+    for got, want in zip(cache, loader):
+        want.pop("filename")
+        want = T.batch_to_device(want, dev)
+        for k in ("proj_matrices", "depth", "mask", "depth_values"):
+            g, w = got[k], want[k]
+            pairs = ([(g[j], w[j]) for j in sorted(w)]
+                     if isinstance(w, dict) else [(g, w)])
+            if (isinstance(w, dict) and sorted(g) != sorted(w)) or not all(
+                    a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in pairs):
+                raise AssertionError(f"device cache: {k} differs from "
+                                     f"the Loader's")
+        gi, wi = got["imgs"], want["imgs"]
+        ulps = float_ulps(torch, gi, wi)
+        img_ulps = max(img_ulps, int(ulps.max()))
+        off += int((ulps > 0).sum())
+        if not (torch.equal(torch.round(gi * 255), torch.round(wi * 255))
+                and img_ulps <= 1):
+            raise AssertionError(f"device cache: images {img_ulps} ulps "
+                                 f"from the Loader's")
+        moved = T.batch_to_device(got, dev)
+        if not (moved["imgs"] is gi
+                and moved["depth"]["stage4"] is got["depth"]["stage4"]):
+            raise AssertionError("batch_to_device copied a batch "
+                                 "already on the card")
+    n_px = len(cache) * gi.numel()
+    test_bytes = cache.nbytes()
+    del cache, got, want, moved, gi, wi
+    torch.cuda.empty_cache()
 
-        # training through the CLI, fed by the cache and by the Loader
-        made = []
-        real = cli.device_cache_loaders
+    # training through the CLI, fed by the cache and by the Loader
+    made = []
+    real = cli.device_cache_loaders
 
-        def recording(*args, **kwargs):
-            made.append(real(*args, **kwargs))
-            return made[-1]
-        steps, evals = (CACHE_TREE["views"] * CACHE_TREE["lights"] // B,
-                        CACHE_TREE["views"] // B)
-        want = {"k1_launches": 3 * (steps + evals),
-                "k2_launches": 9 * (steps + evals), "k3_launches": 3 * steps,
-                "k4_launches": 8 * evals}
-        runs = []
-        cli.device_cache_loaders = recording
-        try:
-            for i, cached in enumerate((True, False, True, False)):
-                argv = ["--mode", "train", "--device", "cuda", "--trainpath",
-                        tree, "--trainlist", listfile, "--testlist",
-                        listfile, "--logdir", os.path.join(tree, f"run{i}"),
-                        "--epochs", "1", "--batch_size", str(B),
-                        "--trainviews", str(V), "--testviews", str(V),
-                        "--summary_freq", "7", "--num_workers", "8",
-                        "--loadckpt", os.path.join(
-                            os.path.dirname(os.path.abspath(__file__)),
-                            "checkpoints", "model_dtu.npz")]
-                step_ms, done, n, secs = timed_cli(
-                    torch, argv + (["--device_cache"] if cached else []))
-                if len(step_ms) != steps or n != want:
-                    raise AssertionError(f"device cache run {i}: "
-                                         f"{len(step_ms)} steps, launches "
-                                         f"{n} (want {want})")
-                timed = step_ms[1:]          # the first step warms up
-                wall = [(done[j] - done[j - 1]) * 1e3
-                        for j in range(2, len(done))]
-                runs.append({
-                    "fed_by": "device cache" if cached else "Loader",
-                    "samples_per_s": B / (statistics.median(timed) / 1e3),
-                    "wall_samples_per_s": B / (statistics.median(wall)
-                                               / 1e3),
-                    "step_ms": timed, "wall_step_ms": wall, **n,
-                    "cli_seconds": secs})
-        finally:
-            cli.device_cache_loaders = real
-        train_cache, eval_cache = made[0]
-        out = {"phase": "device_cache",
-               "config": "dtu train B4 V5 640x512 48/8/8 fp32",
-               "tree": f"{CACHE_TREE['views']} views x "
-                       f"{CACHE_TREE['lights']} lights, written from the "
-                       f"seed",
-               "write_seconds": write_s, "test_cache_build_seconds": build_s,
-               "test_batches_vs_loader": {
-                   "batches": len(loader), "other_leaves": "bitwise",
-                   "img_bytes": "equal", "img_max_ulps": img_ulps,
-                   "img_share_one_ulp_off": off / n_px},
-               "cache_bytes": {"train": train_cache.nbytes(),
-                               "eval": eval_cache.nbytes(),
-                               "test_mode_check": test_bytes},
-               "runs": runs,
-               "cache_samples_per_s": [r["samples_per_s"] for r in runs
-                                       if r["fed_by"] != "Loader"],
-               "loader_samples_per_s": [r["samples_per_s"] for r in runs
-                                        if r["fed_by"] == "Loader"],
-               "cache_wall_samples_per_s": [
-                   r["wall_samples_per_s"] for r in runs
-                   if r["fed_by"] != "Loader"],
-               "loader_wall_samples_per_s": [
-                   r["wall_samples_per_s"] for r in runs
-                   if r["fed_by"] == "Loader"],
-               "seconds": time.perf_counter() - t0}
-        del made, train_cache, eval_cache
+    def recording(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+    steps, evals = (CACHE_TREE["views"] * CACHE_TREE["lights"] // B,
+                    CACHE_TREE["views"] // B)
+    want = {"k1_launches": 3 * (steps + evals),
+            "k2_launches": 9 * (steps + evals), "k3_launches": 3 * steps,
+            "k4_launches": 8 * evals}
+    runs = []
+    cli.device_cache_loaders = recording
+    try:
+        for i, cached in enumerate((True, False, True, False)):
+            argv = ["--mode", "train", "--device", "cuda", "--trainpath",
+                    tree, "--trainlist", listfile, "--testlist",
+                    listfile, "--logdir", os.path.join(tree, f"run{i}"),
+                    "--epochs", "1", "--batch_size", str(B),
+                    "--trainviews", str(V), "--testviews", str(V),
+                    "--summary_freq", "7", "--num_workers", "8",
+                    "--loadckpt", os.path.join(
+                        os.path.dirname(os.path.abspath(__file__)),
+                        "checkpoints", "model_dtu.npz")]
+            step_ms, done, n, secs = timed_cli(
+                torch, argv + (["--device_cache"] if cached else []))
+            if len(step_ms) != steps or n != want:
+                raise AssertionError(f"device cache run {i}: "
+                                     f"{len(step_ms)} steps, launches "
+                                     f"{n} (want {want})")
+            timed = step_ms[1:]          # the first step warms up
+            wall = [(done[j] - done[j - 1]) * 1e3
+                    for j in range(2, len(done))]
+            runs.append({
+                "fed_by": "device cache" if cached else "Loader",
+                "samples_per_s": B / (statistics.median(timed) / 1e3),
+                "wall_samples_per_s": B / (statistics.median(wall)
+                                           / 1e3),
+                "step_ms": timed, "wall_step_ms": wall, **n,
+                "cli_seconds": secs})
+    finally:
+        cli.device_cache_loaders = real
+    train_cache, eval_cache = made[0]
+    out = {"phase": "device_cache",
+           "config": "dtu train B4 V5 640x512 48/8/8 fp32",
+           "tree": f"{CACHE_TREE['views']} views x "
+                   f"{CACHE_TREE['lights']} lights, written from the "
+                   f"seed",
+           "write_seconds": write_s, "test_cache_build_seconds": build_s,
+           "test_batches_vs_loader": {
+               "batches": len(loader), "other_leaves": "bitwise",
+               "img_bytes": "equal", "img_max_ulps": img_ulps,
+               "img_share_one_ulp_off": off / n_px},
+           "cache_bytes": {"train": train_cache.nbytes(),
+                           "eval": eval_cache.nbytes(),
+                           "test_mode_check": test_bytes},
+           "runs": runs,
+           "cache_samples_per_s": [r["samples_per_s"] for r in runs
+                                   if r["fed_by"] != "Loader"],
+           "loader_samples_per_s": [r["samples_per_s"] for r in runs
+                                    if r["fed_by"] == "Loader"],
+           "cache_wall_samples_per_s": [
+               r["wall_samples_per_s"] for r in runs
+               if r["fed_by"] != "Loader"],
+           "loader_wall_samples_per_s": [
+               r["wall_samples_per_s"] for r in runs
+               if r["fed_by"] == "Loader"],
+           "seconds": time.perf_counter() - t0}
+    del made, train_cache, eval_cache
     torch.cuda.empty_cache()
     for r in out["runs"]:
         for k in ("step_ms", "wall_step_ms"):
             r[k] = [round(x, 3) for x in r[k]]
     log(out)
     return runs[0]
+
+
+def jax_checkpoint_phase(torch, root, tree, listfile, sd):
+    """A JAX training run carried onto the card, with every import of JAX,
+    optax, orbax and flax refused while the phase runs (installed or
+    not).  ``tests/jax_pickle.py`` writes the JAX train
+    CLI's ``model_000000.ckpt`` pickle (the optax classes named as a real
+    file names them): the shipped DTU weights in the JAX layouts, AdamW
+    moments after an epoch of 21 seeded updates, both counts at 21.  Then
+    ``cli/train.py main --resume`` on ``write_dtu_tree``'s tree at the DTU
+    training config (640x512, 5 views, B=4, fp32) continues it at epoch 1
+    for an epoch (21 steps, 3 eval batches), launch counts reset just
+    before and read just after: the carried moments, steps and learning
+    rate are read at the first resumed step, and that step's loss and
+    gradients are held against the same step on the plain path
+    (``compare_grads``).  Last, the carried weights serve through
+    ``InferenceEngine(device="cuda")`` at the DTU eval config (K1, K2, K4),
+    the 13 maps and the confidence held bitwise to the engine loaded from
+    ``model_dtu.npz``, with a second npz-loaded forward to tell run-to-run
+    variation apart.  Returns the launch counts of the resumed run and of
+    the served forward."""
+    import importlib.abc
+    import importlib.util
+    sys.path.insert(0, os.path.join(root, "tests"))
+    import jax_pickle
+    t0 = time.perf_counter()
+    forbidden = ("jax", "jaxlib", "optax", "orbax", "flax")
+    installed = [m for m in forbidden
+                 if importlib.util.find_spec(m) is not None]
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        """Fails an import of JAX or its libraries while the phase runs."""
+
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in forbidden:
+                raise ModuleNotFoundError(f"{name}: refused in this phase")
+            return None
+    def loaded():
+        return {m for m in sys.modules if m.split(".")[0] in forbidden}
+    before = loaded()
+    refuse = Refuse()
+    sys.meta_path.insert(0, refuse)
+    try:
+        resumed, serve, out = _jax_checkpoint_run(torch, tree, listfile,
+                                                  sd, jax_pickle)
+    finally:
+        sys.meta_path.remove(refuse)
+    if loaded() - before:
+        raise AssertionError(f"the phase imported {loaded() - before}")
+    log({**out, "installed_here_imports_refused": installed,
+         "imported_before_the_phase": sorted(before),
+         "seconds": time.perf_counter() - t0})
+    return resumed, serve
+
+
+def _jax_checkpoint_run(torch, tree, listfile, sd, jax_pickle):
+    """``jax_checkpoint_phase``'s work; returns the launch counts and the
+    phase's log line."""
+    from effi_mvs_plus_tpu_torch.cli import train as cli
+    from effi_mvs_plus_tpu_torch.data import cams as camio
+    from effi_mvs_plus_tpu_torch.infer import InferenceEngine
+    from effi_mvs_plus_tpu_torch.io import (checkpoint_format,
+                                            complete_state_dict,
+                                            load_state_dict, torch_leaves)
+    from effi_mvs_plus_tpu_torch.models import EffiMVSConfig
+    from effi_mvs_plus_tpu_torch.train import trainer as T
+    from effi_mvs_plus_tpu_torch.train.optim import onecycle_linear
+    B = TRAIN["B"]
+    steps = CACHE_TREE["views"] * CACHE_TREE["lights"] // B
+    evals = CACHE_TREE["views"] // B
+    logdir = os.path.join(tree, "jax_run")
+    os.makedirs(logdir)
+    path = os.path.join(logdir, "model_000000.ckpt")
+    params = jax_pickle.jax_tree_from_state_dict(sd)
+    mu, nu = jax_pickle.seeded_moments(params, steps, SEED)
+    jax_pickle.write_jax_checkpoint(path, params, mu, nu, steps, steps, 0)
+    weights = load_state_dict(path)
+    if checkpoint_format(path) != "jax" or sorted(weights) != sorted(sd) \
+            or not all(torch.equal(weights[k], v) for k, v in sd.items()
+                       if not k.endswith("num_batches_tracked")):
+        raise AssertionError("the JAX checkpoint's weights differ from the "
+                             "npz's")
+    want_mu = complete_state_dict(torch_leaves(mu))
+    want_nu = complete_state_dict(torch_leaves(nu))
+
+    # resume through the CLI; the first step's state and batch recorded
+    argv = ["--mode", "train", "--device", "cuda", "--trainpath", tree,
+            "--trainlist", listfile, "--testlist", listfile, "--logdir",
+            logdir, "--epochs", "2", "--resume", "--batch_size", str(B),
+            "--trainviews", str(TRAIN["V"]), "--testviews", str(TRAIN["V"]),
+            "--summary_freq", "1", "--num_workers", "8"]
+    sched = onecycle_linear(cli.build_parser().parse_args(argv).lr,
+                            2 * steps + 100)
+    first = {}
+    real = T.make_train_step
+
+    def recording(model, optimizer, scheduler, *args, **kwargs):
+        step = real(model, optimizer, scheduler, *args, **kwargs)
+
+        def run_step(batch):
+            if not first:
+                named = dict(model.named_parameters())
+                st = [optimizer.state[p] for p in named.values()]
+                first.update(
+                    model=model,
+                    saved={k: v.clone() for k, v in
+                           model.state_dict().items()},
+                    batch=T.batch_to_device(batch, "cuda"),
+                    lr=optimizer.param_groups[0]["lr"],
+                    last_epoch=scheduler.last_epoch,
+                    adam_steps=sorted({float(x["step"]) for x in st}),
+                    moments_bitwise=all(
+                        torch.equal(x["exp_avg"].cpu(), want_mu[n])
+                        and torch.equal(x["exp_avg_sq"].cpu(), want_nu[n])
+                        for n, x in zip(named, st)))
+            return step(batch)
+        return run_step
+    T.make_train_step = recording
+    try:
+        step_ms, _, resumed, cli_s = timed_cli(torch, argv)
+    finally:
+        T.make_train_step = real
+    want = {"k1_launches": 3 * (steps + evals),
+            "k2_launches": 9 * (steps + evals), "k3_launches": 3 * steps,
+            "k4_launches": 8 * evals}
+    if len(step_ms) != steps or resumed != want:
+        raise AssertionError(f"resumed run: {len(step_ms)} steps, launches "
+                             f"{resumed} (want {want})")
+    if not (first["moments_bitwise"] and first["adam_steps"] == [steps]
+            and first["last_epoch"] == steps
+            and abs(first["lr"] - sched(steps)) <= 1e-12):
+        raise AssertionError(
+            f"carried state at the first step: moments bitwise "
+            f"{first['moments_bitwise']}, AdamW steps {first['adam_steps']}, "
+            f"schedule {first['last_epoch']}, lr {first['lr']} (want "
+            f"{steps}, {sched(steps)})")
+    rows = [json.loads(ln) for ln in open(os.path.join(logdir,
+                                                       "metrics.jsonl"))]
+    train = [r for r in rows if "train/loss" in r]
+    if [r["step"] for r in train] != list(range(steps + 1, 2 * steps + 1)) \
+            or not np.isfinite([r["train/loss"] for r in train]).all() \
+            or not any(r.get("event") == "resume" and r["epoch"] == 1
+                       for r in rows):
+        raise AssertionError(f"resumed run: metrics rows {rows[:3]}")
+    after = T.load_checkpoint(os.path.join(logdir, "model_000001.ckpt"))
+    if after["scheduler"]["last_epoch"] != 2 * steps or {
+            float(x["step"]) for x in after["optimizer"]["state"].values()
+    } != {2.0 * steps}:
+        raise AssertionError("the port's checkpoint of epoch 1 does not "
+                             "count both epochs' steps")
+    loss_k, loss_p, worst, worst_leaf, p90 = kernels_against_plain(
+        torch, first["model"], first["batch"], first["saved"])
+    carried = {"lr": first["lr"], "adam_steps": first["adam_steps"],
+               "schedule_step": first["last_epoch"],
+               "moments": "bitwise the file's"}
+    del first, after
+    torch.cuda.empty_cache()
+
+    # the carried weights served, against the npz-loaded engine
+    batch = dtu_batch(camio)
+    args = (torch.from_numpy(batch["imgs"]).cuda(),
+            {k: torch.from_numpy(batch["proj_matrices"][k]).cuda()
+             for k in ("stage1", "stage2", "stage3")},
+            torch.from_numpy(batch["depth_values"]).cuda())
+
+    def forward(state):
+        eng = InferenceEngine(state, EffiMVSConfig(), device="cuda")
+        with torch.inference_mode():
+            out = eng.model(*args)
+        return [d.cpu() for d in out["depth"]] + [
+            out["photometric_confidence"].cpu()]
+    reset_launches()
+    served = forward(weights)
+    serve = launch_counts()
+    if (serve["k1_launches"], serve["k2_launches"],
+            serve["k4_launches"]) != (3, 9, 8):
+        raise AssertionError(f"served forward: launches {serve}")
+    npz = [forward(sd) for _ in range(2)]
+    bitwise = all(torch.equal(a, b) for a, b in zip(served, npz[0]))
+    rerun_bitwise = all(torch.equal(a, b) for a, b in zip(*npz))
+    diff = max(float((a - b).abs().max()) for a, b in zip(served, npz[0]))
+    if len(served) != 14 or not all(torch.isfinite(a).all()
+                                    for a in served):
+        raise AssertionError("served maps: not 13 finite maps and a "
+                             "confidence")
+    if not bitwise:
+        if rerun_bitwise:
+            raise AssertionError(f"the carried weights serve other maps "
+                                 f"than the npz's (max abs {diff})")
+        check_depth_maps("carried weights", {"depth": served[:13]},
+                         {"depth": npz[0][:13]}, 0.5)
+    return resumed, serve, {
+         "phase": "jax_checkpoint",
+         "checkpoint": "tests/jax_pickle.py: model_dtu.npz in the JAX "
+                       "layouts, 21 seeded AdamW updates, epoch 0",
+         "resume_config": "dtu train B4 V5 640x512 48/8/8 fp32",
+         "resumed_steps": len(step_ms), "eval_batches": evals,
+         "first_step": carried,
+         "loss_kernels": loss_k, "loss_plain": loss_p,
+         "grad_worst_rel_l2": worst, "grad_worst_leaf": worst_leaf,
+         "grad_p90_rel_l2": p90,
+         "samples_per_s": B / (statistics.median(step_ms[1:]) / 1e3),
+         "cli_seconds": cli_s, **resumed,
+         "serve_config": "dtu B6 V5 1152x864 48/8/8 fp32",
+         "serve_launches": serve, "served_vs_npz_bitwise": bitwise,
+         "npz_rerun_bitwise": rerun_bitwise, "served_vs_npz_max_abs": diff}
 
 
 def entry_phase(torch):

@@ -4,8 +4,12 @@ Port of ``effi_mvs_plus_tpu/cli/test_dtu.py``: saves per-view depth,
 confidence, cams and preview images, then fuses each scan with the dynamic
 consistency filter into mvsnetXXX_l3.ply point clouds.  Depth inference
 batches reference views on ``--device`` (``cuda`` unless told otherwise;
-with no GPU the default raises); fusion runs there too, one scan after
-another.  ``--loadckpt`` takes a shipped ``.npz`` or a port checkpoint.
+with no GPU the default raises).  Fusion runs on ``--device`` too: on
+the card scan after scan, as one process holds the card; with ``--device
+cpu`` in a ``spawn`` pool of ``--num_worker`` processes (the JAX CLI's
+flag), one scan each, when there are several scans.  ``--loadckpt`` takes
+any checkpoint ``io.load_state_dict`` reads: a shipped ``.npz``, a port
+or reference torch ``.ckpt``, or a JAX train checkpoint.
 
 Multi-process (``torchrun``, one process per GPU): each rank infers and
 fuses its round-robin share of the scans.
@@ -50,6 +54,11 @@ def build_parser(profile_name="dtu_eval"):
     p.add_argument("--conf", type=float)
     p.add_argument("--dist_base", type=float)
     p.add_argument("--diff_base", type=float)
+    p.add_argument("--num_worker", type=int, default=4,
+                   help="with --device cpu, scans fused at once in a spawn "
+                        "pool; on the card, scans are fused one after "
+                        "another whatever this says (one process holds "
+                        "the card)")
     p.add_argument("--save_masks", action="store_true",
                    help="write per-ref photo/geo/final mask PNGs")
     p.add_argument("--skip_depth", action="store_true",
@@ -154,9 +163,21 @@ def main(argv=None):
     if not args.skip_depth:
         save_depths(args, scans)
     if not args.skip_fusion:
+        fuse_scans(args, scans)
+    parallel.barrier()
+
+
+def fuse_scans(args, scans):
+    """``fuse_scan`` of every scan: in a ``spawn`` pool of up to
+    ``--num_worker`` processes on the CPU, else one after another."""
+    workers = min(args.num_worker, len(scans))
+    if torch.device(args.device).type != "cpu" or workers <= 1:
         for scan in scans:
             fuse_scan(args, scan)
-    parallel.barrier()
+        return
+    import multiprocessing as mp
+    with mp.get_context("spawn").Pool(workers) as pool:
+        pool.starmap(fuse_scan, [(args, scan) for scan in scans])
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ Port of ``effi_mvs_plus_tpu/cli/test_tank.py``: per-scene depth inference
 at 1920x1056 with 11 views (ndepths 96,8,8, bf16 compute), then the
 dynamic visibility fusion with the per-scene filter configs, writing
 <scene>.ply.  Runs on ``--device`` (``cuda`` unless told otherwise; with
-no GPU the default raises).  ``--loadckpt`` takes a shipped ``.npz`` or a
-port checkpoint.
+no GPU the default raises).  ``--loadckpt`` takes any checkpoint
+``io.load_state_dict`` reads: a shipped ``.npz``, a port or reference
+torch ``.ckpt``, or a JAX train checkpoint.
 
 Multi-process (``torchrun``, one process per GPU): each rank infers and
 fuses its round-robin share of ``--scenes``; with ``--shard_views`` the

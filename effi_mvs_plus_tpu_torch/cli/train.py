@@ -3,8 +3,15 @@
 The port of ``effi_mvs_plus_tpu/cli/train.py``: the same argument surface
 and profiles, the train and eval epochs, per-epoch checkpoints
 (``model_NNNNNN.ckpt``, ``train/trainer.py``), the metrics JSONL and
-``--resume``.  ``--loadckpt`` takes a shipped ``.npz`` or a port
-checkpoint.  Runs on ``--device`` (``cuda`` unless told otherwise).
+``--resume``.  Runs on ``--device`` (``cuda`` unless told otherwise).
+
+* Checkpoints of the JAX package are taken as the JAX CLI takes them
+  (``io.load_state_dict``, ``train/trainer.py``): ``--resume`` in a logdir
+  the JAX CLI wrote continues its newest ``model_NNNNNN.ckpt`` at
+  ``epoch + 1`` with the AdamW moments and the schedule's step
+  (``optim.load_optax_state``); ``--loadckpt`` takes the weights alone of
+  a shipped ``.npz``, a port or reference torch ``.ckpt`` or a JAX
+  checkpoint.  An orbax directory is refused with its reason.
 
 * ``--mode finetune`` selects the ``blend_finetune`` profile (BlendedMVS,
   96/8/8, 7 views, B=8, lr 4e-4) and needs ``--loadckpt``.
@@ -93,7 +100,8 @@ def build_parser(profile_name="dtu_train"):
     p.add_argument("--logdir", default="./checkpoints/run")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--loadckpt", default=None,
-                   help="init weights from a shipped .npz or a port "
+                   help="init weights from a shipped .npz, a port or "
+                        "reference torch .ckpt, or a JAX train "
                         "model_NNNNNN.ckpt")
     p.add_argument("--summary_freq", type=int)
     p.add_argument("--save_freq", type=int)
@@ -243,7 +251,8 @@ def main(argv=None):
     from effi_mvs_plus_tpu_torch.data.loader import Loader
     from effi_mvs_plus_tpu_torch.device import resolve_device
     from effi_mvs_plus_tpu_torch.train import trainer as T
-    from effi_mvs_plus_tpu_torch.train.optim import make_optimizer
+    from effi_mvs_plus_tpu_torch.train.optim import (load_optax_state,
+                                                     make_optimizer)
     from effi_mvs_plus_tpu_torch.utils.logging import MetricsWriter
 
     if parallel.initialize(device=args.device):
@@ -305,7 +314,9 @@ def main(argv=None):
     total_steps = len(train_loader) * args.epochs + 100
     optimizer, scheduler, sched = make_optimizer(model, args.lr, total_steps,
                                                  weight_decay=args.wd)
-    if payload is not None:
+    if payload is not None and "opt_state" in payload:
+        load_optax_state(model, optimizer, scheduler, payload["opt_state"])
+    elif payload is not None:
         optimizer.load_state_dict(payload["optimizer"])
         scheduler.load_state_dict(payload["scheduler"])
 

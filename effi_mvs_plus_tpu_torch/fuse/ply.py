@@ -1,9 +1,12 @@
 """Minimal binary PLY codec, the port's copy of
-``effi_mvs_plus_tpu/fuse/ply.py`` (numpy only).
+``effi_mvs_plus_tpu/fuse/ply.py``.
 
 Writes the layout the reference produces through `plyfile`:
 binary_little_endian vertices with float32 x,y,z and uchar
-red,green,blue, byte for byte what the JAX package writes.
+red,green,blue, byte for byte what the JAX package writes.  ``write_ply``
+writes through the native data plane (``native.ply_write``), as the JAX
+writer does; a failed build raises (the port's rule for ``native/``).
+``write_ply_numpy`` is its plain version, the same bytes from numpy.
 """
 
 from __future__ import annotations
@@ -14,13 +17,23 @@ _VERTEX_DTYPE = np.dtype([("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
                           ("red", "u1"), ("green", "u1"), ("blue", "u1")])
 
 
+def _points(xyz, rgb):
+    xyz = np.asarray(xyz, dtype=np.float32)
+    if rgb is None:
+        rgb = np.full((len(xyz), 3), 255, np.uint8)
+    return xyz, np.asarray(rgb, dtype=np.uint8)
+
+
 def write_ply(path, xyz, rgb=None):
     """xyz: (N,3) float; rgb: (N,3) uint8 or None (defaults to white)."""
-    xyz = np.asarray(xyz, dtype=np.float32)
+    from effi_mvs_plus_tpu_torch import native
+    native.ply_write(path, *_points(xyz, rgb))
+
+
+def write_ply_numpy(path, xyz, rgb=None):
+    """``write_ply``'s file, written by numpy."""
+    xyz, rgb = _points(xyz, rgb)
     n = len(xyz)
-    if rgb is None:
-        rgb = np.full((n, 3), 255, np.uint8)
-    rgb = np.asarray(rgb, dtype=np.uint8)
     rec = np.empty(n, dtype=_VERTEX_DTYPE)
     rec["x"], rec["y"], rec["z"] = xyz[:, 0], xyz[:, 1], xyz[:, 2]
     rec["red"], rec["green"], rec["blue"] = rgb[:, 0], rgb[:, 1], rgb[:, 2]

@@ -32,9 +32,10 @@ _STAGES = ("stage1", "stage2", "stage3")
 class InferenceEngine:
     def __init__(self, state_dict, cfg: EffiMVSConfig = EffiMVSConfig(),
                  buckets=None, device=None, shard_policy=None):
-        """state_dict: the network's weights (``io.load_npz_checkpoint``
-        or ``io.params_from_jax``), loaded strictly.  device: ``cuda``
-        unless the caller names another; with no GPU the default raises.
+        """state_dict: the network's weights (``io.load_state_dict`` of a
+        shipped ``.npz``, a torch ``.ckpt`` or a JAX train checkpoint),
+        loaded strictly.  device: ``cuda`` unless the caller names
+        another; with no GPU the default raises.
 
         buckets: optional list of (H, W) size buckets (ascending area).
         An input is zero-padded bottom/right to the smallest bucket that

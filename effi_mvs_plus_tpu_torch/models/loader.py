@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from effi_mvs_plus_tpu_torch.device import resolve_device
-from effi_mvs_plus_tpu_torch.io import load_npz_checkpoint
+from effi_mvs_plus_tpu_torch.io import load_state_dict
 from effi_mvs_plus_tpu_torch.models.effi_mvs import EffiMVS, EffiMVSConfig
 
 
@@ -20,5 +20,7 @@ def build_model(state_dict, cfg: EffiMVSConfig = EffiMVSConfig(),
 
 def load_model(path, cfg: EffiMVSConfig = EffiMVSConfig(),
                device=None) -> EffiMVS:
-    """``build_model`` from a shipped ``checkpoints/*.npz``."""
-    return build_model(load_npz_checkpoint(path), cfg, device)
+    """``build_model`` from any checkpoint file ``io.load_state_dict``
+    reads: a shipped ``checkpoints/*.npz``, a torch ``.ckpt`` or a JAX
+    train checkpoint."""
+    return build_model(load_state_dict(path), cfg, device)

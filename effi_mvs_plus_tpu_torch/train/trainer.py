@@ -18,7 +18,13 @@ gradients are averaged over the grid's groups before AdamW
 
 Checkpoints are ``model_NNNNNN.ckpt`` files written with ``torch.save``:
 ``{"model", "optimizer", "scheduler", "epoch"}``, where ``"model"`` is the
-state dict in the reference's own names.
+state dict in the reference's own names.  ``load_checkpoint`` and
+``latest_checkpoint`` also take the JAX train CLI's ``model_NNNNNN.ckpt``
+pickles in the same logdir: its payload comes back as
+``{"model", "opt_state", "epoch"}``, the optax state for
+``optim.load_optax_state``.  An orbax ``model_NNNNNN/`` directory counts
+in the ordering and is refused, with the reason, when it is the one to
+load.
 """
 
 from __future__ import annotations
@@ -30,6 +36,8 @@ import torch
 
 from effi_mvs_plus_tpu_torch import nn
 from effi_mvs_plus_tpu_torch.device import resolve_device
+from effi_mvs_plus_tpu_torch.io import jax_checkpoint as jc
+from effi_mvs_plus_tpu_torch.io import params_from_jax
 from effi_mvs_plus_tpu_torch.parallel import mesh as par
 from effi_mvs_plus_tpu_torch.train.loss import (abs_depth_error, mvs_loss,
                                                 threshold_error)
@@ -177,17 +185,26 @@ def save_checkpoint(path, model, optimizer, scheduler, epoch):
 
 
 def load_checkpoint(path):
-    """The payload of ``save_checkpoint``, tensors on the CPU."""
-    return torch.load(path, map_location="cpu", weights_only=True)
+    """The payload of the port's ``save_checkpoint`` (tensors on the CPU),
+    or of the JAX package's as ``{"model": state dict, "opt_state",
+    "epoch"}``; an orbax directory raises ValueError with the reason."""
+    if jc.checkpoint_format(path) != "jax":
+        return torch.load(path, map_location="cpu", weights_only=True)
+    payload = jc.read_jax_checkpoint(path)
+    return {"model": params_from_jax(payload["params"]),
+            "opt_state": payload.get("opt_state"), "epoch": payload["epoch"]}
 
 
 def latest_checkpoint(logdir):
-    """The highest-epoch ``model_NNNNNN.ckpt`` in logdir, or None."""
+    """The highest-epoch ``model_NNNNNN.ckpt`` (either package's) or
+    orbax ``model_NNNNNN`` directory in logdir, or None."""
     if not os.path.isdir(logdir):
         return None
     cands = [f for f in os.listdir(logdir)
-             if f.startswith("model_") and f.endswith(".ckpt")]
+             if f.startswith("model_") and f[6:].split(".")[0].isdigit()
+             and (f.endswith(".ckpt")
+                  or os.path.isdir(os.path.join(logdir, f)))]
     if not cands:
         return None
-    cands.sort(key=lambda x: int(x.split("_")[-1].split(".")[0]))
+    cands.sort(key=lambda x: int(x[6:].split(".")[0]))
     return os.path.join(logdir, cands[-1])

@@ -95,12 +95,14 @@ def test_dtu_cli_reaches_the_plane(tmp_path):
     assert overall < 2.0 and r.acc_mean < 2.0 and r.comp_mean < 2.0, r
 
 
-@pytest.mark.parametrize("flags,want", [([], "cuda"),
-                                        (["--device", "cpu"], "cpu")])
+@pytest.mark.parametrize("flags,want", [
+    ([], "cuda"), (["--device", "cpu", "--num_worker", "1"], "cpu")])
 def test_dtu_cli_fuses_on_the_requested_device(tmp_path, monkeypatch, flags,
                                               want):
     """Every scan's fusion runs on --device, ``cuda`` unless told
-    otherwise (fuse_scene stubbed: only the device it is given is read)."""
+    otherwise (fuse_scene stubbed: only the device it is given is read;
+    on the CPU in this process, ``--num_worker 1``: a pool's spawned
+    processes do not see the stub)."""
     import effi_mvs_plus_tpu_torch.data as data
     import effi_mvs_plus_tpu_torch.fuse as fuse
     seen = []
@@ -118,6 +120,36 @@ def test_dtu_cli_fuses_on_the_requested_device(tmp_path, monkeypatch, flags,
                    "--loadckpt", "x.npz", "--outdir", str(tmp_path),
                    "--skip_depth", *flags])
     assert seen == [want, want]
+
+
+def test_dtu_cli_fusion_pool_writes_the_serial_bytes(tmp_path):
+    """``--device cpu --num_worker 2`` fuses two scans in a spawn pool of
+    two processes and writes the PLY bytes that ``--num_worker 1`` (scan
+    after scan in this process) writes."""
+    import shutil
+    H, W, views = 64, 80, 3
+    root, out = str(tmp_path / "data"), str(tmp_path / "out")
+    build_scene(root, n_views=views, H=H, W=W, baseline=40.0)
+    common = ["--device", "cpu", "--testpath", root, "--loadckpt",
+              CKPT.format("dtu"), "--outdir", out, "--num_view", str(views),
+              "--max_h", str(H), "--max_w", str(W), "--conf", "0.3"]
+    one = tmp_path / "one.txt"
+    one.write_text("scan1\n")
+    test_dtu.main(common + ["--testlist", str(one), "--skip_fusion"])
+    shutil.copytree(os.path.join(root, "scan1"), os.path.join(root, "scan4"))
+    shutil.copytree(os.path.join(out, "scan1"), os.path.join(out, "scan4"))
+    both = tmp_path / "both.txt"
+    both.write_text("scan1\nscan4\n")
+    written = {}
+    for workers in ("1", "2"):
+        test_dtu.main(common + ["--testlist", str(both), "--skip_depth",
+                                "--num_worker", workers])
+        paths = [os.path.join(out, f"mvsnet00{i}_l3.ply") for i in (1, 4)]
+        assert len(read_ply(paths[0])[0]) > 0
+        written[workers] = [open(p, "rb").read() for p in paths]
+        for p in paths:
+            os.remove(p)
+    assert written["2"] == written["1"]
 
 
 def test_inference_clis_refuse_what_is_not_ported(tmp_path):

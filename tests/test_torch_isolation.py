@@ -1,7 +1,8 @@
 """The port stands alone: no module of effi_mvs_plus_tpu_torch/ and no line
-of chip_smoke.py or of the port's scripts imports jax or the JAX package
-(an AST scan); and the train CLI refuses an unknown layout with its
-reason and takes the rest."""
+of chip_smoke.py, of the port's scripts or of ``tests/jax_pickle.py``
+(which chip_smoke.py imports) imports jax, optax, orbax, flax or the JAX
+package (an AST scan); and the train CLI refuses an unknown layout with
+its reason and takes the rest."""
 
 import ast
 import os
@@ -9,7 +10,7 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "effi_mvs_plus_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "orbax", "flax", "effi_mvs_plus_tpu")
 
 
 def _port_files():
@@ -17,9 +18,10 @@ def _port_files():
     files = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
              for f in fs if f.endswith(".py")]
     scripts = os.path.join(ROOT, "scripts")
-    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py")] + sorted(
-        os.path.join(scripts, f) for f in os.listdir(scripts)
-        if f.startswith("torch_") and f.endswith(".py"))
+    return sorted(files) + [os.path.join(ROOT, "chip_smoke.py"),
+                            os.path.join(ROOT, "tests", "jax_pickle.py")] \
+        + sorted(os.path.join(scripts, f) for f in os.listdir(scripts)
+                 if f.startswith("torch_") and f.endswith(".py"))
 
 
 def _imported_roots(tree):
@@ -50,6 +52,7 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_package():
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert "chip_smoke.py" in rel
+    assert "tests/jax_pickle.py" in rel
     assert "effi_mvs_plus_tpu_torch/models/effi_mvs.py" in rel
     assert "effi_mvs_plus_tpu_torch/ops/cuda_warp.py" in rel
     assert "scripts/torch_probe_k2k4.py" in rel
@@ -63,7 +66,8 @@ def test_scan_sees_the_package():
                 "parallel/equivalence.py", "data/registry.py",
                 "data/loader.py", "infer/engine.py", "fuse/static.py",
                 "fuse/legacy.py", "fuse/gipuma.py", "train/metrics.py",
-                "native/__init__.py", "entry.py", "data/device_cache.py"):
+                "native/__init__.py", "entry.py", "data/device_cache.py",
+                "io/jax_checkpoint.py", "io/torch_import.py"):
         assert f"effi_mvs_plus_tpu_torch/{new}" in rel
 
 

@@ -2,7 +2,8 @@
 here with g++ into build/native): PFM round trips with the port's numpy
 codec both ways and a big-endian file, resizes against the port's numpy
 INTER_LINEAR and INTER_NEAREST resizes, binary PLY against
-``fuse/ply.py``; a failed build raises."""
+``fuse/ply.py``'s numpy writer, which ``write_ply`` (the native route)
+matches byte for byte; a failed build raises."""
 
 import numpy as np
 import pytest
@@ -11,7 +12,8 @@ from effi_mvs_plus_tpu_torch import native
 from effi_mvs_plus_tpu_torch.data.datasets import (_resize_bilinear,
                                                    _resize_nearest)
 from effi_mvs_plus_tpu_torch.data.pfm import read_pfm, save_pfm
-from effi_mvs_plus_tpu_torch.fuse.ply import read_ply, write_ply
+from effi_mvs_plus_tpu_torch.fuse import ply
+from effi_mvs_plus_tpu_torch.fuse.ply import read_ply, write_ply_numpy
 
 
 @pytest.mark.parametrize("shape", [(37, 53), (16, 24, 3)])
@@ -67,12 +69,31 @@ def test_ply_matches_fuse_ply(tmp_path, colours):
     got_xyz, got_rgb = read_ply(str(tmp_path / "native.ply"))
     np.testing.assert_array_equal(got_xyz, xyz)
     if colours:
-        write_ply(str(tmp_path / "numpy.ply"), xyz, rgb)
+        write_ply_numpy(str(tmp_path / "numpy.ply"), xyz, rgb)
         assert (tmp_path / "native.ply").read_bytes() == \
             (tmp_path / "numpy.ply").read_bytes()
         np.testing.assert_array_equal(got_rgb, rgb)
     else:
         assert got_rgb is None
+
+
+@pytest.mark.parametrize("colours", [True, False])
+def test_write_ply_takes_the_native_route(tmp_path, monkeypatch, colours):
+    """``fuse/ply.write_ply`` writes through ``native.ply_write`` the
+    bytes of its numpy writer (white when no colours are given)."""
+    rng = np.random.default_rng(3)
+    xyz = rng.normal(size=(777, 3))
+    rgb = rng.integers(0, 256, (777, 3)).astype(np.uint8) if colours \
+        else None
+    calls = []
+    real = native.ply_write
+    monkeypatch.setattr(native, "ply_write",
+                        lambda *a: calls.append(a) or real(*a))
+    ply.write_ply(tmp_path / "native.ply", xyz, rgb)
+    assert len(calls) == 1
+    write_ply_numpy(tmp_path / "numpy.ply", xyz, rgb)
+    assert (tmp_path / "native.ply").read_bytes() == \
+        (tmp_path / "numpy.ply").read_bytes()
 
 
 def test_failed_build_raises(tmp_path, monkeypatch):
