@@ -451,8 +451,8 @@ def run(torch, card):
 
     # ---- 1. build ----
     t0 = time.perf_counter()
-    _, build_s = _kernels.build(verbose=True)
     _kernels.library()
+    build_s = _kernels.build_seconds()
     log({"phase": "build", "nvcc_seconds": round(build_s, 2),
          "total_seconds": round(time.perf_counter() - t0, 2)})
     seconds["build"] = lap()
@@ -747,9 +747,10 @@ def serving_path(torch, sd):
                             device="cuda")
 
     def counts():
-        return cuda_warp.launches, cuda_gru.launches, cuda_conv.launches
+        n = launch_counts()
+        return n["k1_launches"], n["k2_launches"], n["k4_launches"]
 
-    cuda_warp.launches = cuda_gru.launches = cuda_conv.launches = 0
+    reset_launches()
     forwards = 0
     t32 = []
     for i in range(4):
@@ -1058,7 +1059,6 @@ def training_path(torch, sd):
     from effi_mvs_plus_tpu_torch.data import cams as camio
     from effi_mvs_plus_tpu_torch.data.loader import Loader
     from effi_mvs_plus_tpu_torch.models import EffiMVS, EffiMVSConfig
-    from effi_mvs_plus_tpu_torch.ops import cuda_gru, cuda_warp
     from effi_mvs_plus_tpu_torch.train import trainer as T
     from effi_mvs_plus_tpu_torch.train.optim import make_optimizer
 
@@ -1073,8 +1073,8 @@ def training_path(torch, sd):
     model.to(dev)
 
     def counts():
-        return (cuda_warp.launches, cuda_warp.bwd_launches,
-                cuda_gru.launches)
+        n = launch_counts()
+        return n["k1_launches"], n["k3_launches"], n["k2_launches"]
 
     # one step's loss and gradients, kernels against plain versions, from
     # the same weights, batch and dropout seed
@@ -1094,7 +1094,7 @@ def training_path(torch, sd):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_ms, losses = [], []
-    cuda_warp.launches = cuda_warp.bwd_launches = cuda_gru.launches = 0
+    reset_launches()
     for i in range(warm + timed):
         batch = next(batches)
         start = torch.cuda.Event(enable_timing=True)
@@ -1150,8 +1150,8 @@ def kernels_against_plain(torch, model, batch, saved, rerun=False):
     from effi_mvs_plus_tpu_torch.train.loss import mvs_loss
 
     def counts():
-        return (cuda_warp.launches, cuda_warp.bwd_launches,
-                cuda_gru.launches)
+        n = launch_counts()
+        return n["k1_launches"], n["k3_launches"], n["k2_launches"]
 
     def loss_and_grads():
         model.load_state_dict(saved)      # a train forward moves BN stats
@@ -1167,7 +1167,7 @@ def kernels_against_plain(torch, model, batch, saved, rerun=False):
         return loss.item(), {n: p.grad.detach().clone()
                              for n, p in model.named_parameters()}
 
-    cuda_warp.launches = cuda_warp.bwd_launches = cuda_gru.launches = 0
+    reset_launches()
     loss_k, grads_k = loss_and_grads()
     if counts() != (3, 3, 9):
         raise AssertionError(f"one step launched K1, K3, K2 {counts()} "
@@ -1333,7 +1333,7 @@ def stem_ab(torch, sd):
     from effi_mvs_plus_tpu_torch.data import cams as camio
     from effi_mvs_plus_tpu_torch.models import (EffiMVSConfig, build_model,
                                                 freeze_kernel_weights)
-    from effi_mvs_plus_tpu_torch.ops import cuda_conv
+    from effi_mvs_plus_tpu_torch.utils import profiling
 
     batch = dtu_batch(camio)
     args = (torch.from_numpy(batch["imgs"]).cuda(),
@@ -1348,15 +1348,15 @@ def stem_ab(torch, sd):
         def forward(on):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
-            n = cuda_conv.launches
+            n = profiling.counter("k4.launches")
             with torch.inference_mode() if on else torch.enable_grad():
                 start.record()
                 depth = model(*args)["depth"][-1]
                 end.record()
             end.synchronize()
-            if cuda_conv.launches - n != (len(CHAIN_NAMES) if on else 0):
-                raise AssertionError(f"fused stem {on}: "
-                                     f"{cuda_conv.launches - n} K4 launches")
+            n = profiling.counter("k4.launches") - n
+            if n != (len(CHAIN_NAMES) if on else 0):
+                raise AssertionError(f"fused stem {on}: {n} K4 launches")
             return start.elapsed_time(end), depth
 
         times, depth = {False: [], True: []}, {}
@@ -1497,7 +1497,6 @@ def tank_path(torch, root):
     from effi_mvs_plus_tpu_torch.cli import test_tank
     from effi_mvs_plus_tpu_torch.data import cams as camio
     from effi_mvs_plus_tpu_torch.data.datasets import TanksDataset
-    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
     try:
         import PIL  # noqa: F401
     except ImportError as e:
@@ -1516,11 +1515,10 @@ def tank_path(torch, root):
             "--outdir", out, "--scenes", "Horse", "--num_view", str(V),
             "--max_h", str(TANK["H"]), "--max_w", str(TANK["W"])])
         torch.cuda.reset_peak_memory_stats()
-        cuda_warp.launches = cuda_gru.launches = cuda_conv.launches = 0
+        reset_launches()
         stats = test_tank.save_depths(args)["Horse"]
-        counts = {"k1_launches": cuda_warp.launches,
-                  "k2_launches": cuda_gru.launches,
-                  "k4_launches": cuda_conv.launches}
+        counts = {k: v for k, v in launch_counts().items()
+                  if k != "k3_launches"}
         maps = stats["maps"]
         if maps != V or tuple(counts.values()) != (3 * maps, 9 * maps,
                                                    8 * maps):
@@ -1702,10 +1700,10 @@ def tank_inplace(torch, root, data):
                                          "model_tank.npz")),
         EffiMVSConfig(ndepths=(96, 8, 8)), device="cuda")
     out_k = model(*args)
-    n = (cuda_warp.launches, cuda_gru.launches, cuda_conv.launches)
+    n = launch_counts()
     with plain_kernels(cuda_warp, cuda_gru, cuda_conv):
         out_p = model(*args)
-    if (cuda_warp.launches, cuda_gru.launches, cuda_conv.launches) != n:
+    if launch_counts() != n:
         raise AssertionError("the plain forward launched a kernel")
     _, worst = check_depth_maps("T&T", out_k, out_p, 5e-4)
     conf_diff = (out_k["photometric_confidence"]
@@ -1788,19 +1786,21 @@ def blend_batch(tree, listfile):
     return batch
 
 
+_LAUNCHES_FROM = {}
+
+
 def launch_counts():
-    """Every kernel wrapper's launch count."""
-    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
-    return {"k1_launches": cuda_warp.launches,
-            "k2_launches": cuda_gru.launches,
-            "k3_launches": cuda_warp.bwd_launches,
-            "k4_launches": cuda_conv.launches}
+    """Every kernel wrapper's launches (the tracer's ``kN.launches``
+    counters) since the last ``reset_launches``."""
+    from effi_mvs_plus_tpu_torch.utils import profiling
+    return {f"{k}_launches": profiling.counter(f"{k}.launches")
+            - _LAUNCHES_FROM.get(k, 0) for k in ("k1", "k2", "k3", "k4")}
 
 
 def reset_launches():
-    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
-    cuda_warp.launches = cuda_gru.launches = 0
-    cuda_warp.bwd_launches = cuda_conv.launches = 0
+    from effi_mvs_plus_tpu_torch.utils import profiling
+    _LAUNCHES_FROM.update({k: profiling.counter(f"{k}.launches")
+                           for k in ("k1", "k2", "k3", "k4")})
 
 
 def timed_cli(torch, argv):

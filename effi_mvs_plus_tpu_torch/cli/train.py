@@ -436,7 +436,9 @@ def run_test(args, cfg, test_ds, dev):
 def run_profile(args, cfg, test_ds, dev):
     """Training steps on the first eval batch: 3 warm-up steps, 5 timed
     (``utils/profiling.Timer``), then one step traced by ``torch.profiler``
-    into ``<logdir>/trace``.  Returns the seconds a step."""
+    into ``<logdir>/trace``, the program's spans (``train.step`` and its
+    phases, the model's stages) among its events.  Returns the seconds a
+    step."""
     from effi_mvs_plus_tpu_torch.data.loader import Loader
     from effi_mvs_plus_tpu_torch.train import trainer as T
     from effi_mvs_plus_tpu_torch.train.optim import make_optimizer

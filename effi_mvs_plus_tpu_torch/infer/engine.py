@@ -9,6 +9,13 @@ run the ranks cooperate on every batch: each runs its block of the
 source views or of the image rows (``parallel/mesh.py``), every rank
 gets the whole maps, and rank 0 writes them.  The JAX engine's in-process batch split (``_fit_devices``)
 becomes the CLIs' per-rank partition of scans and scenes.
+
+Spans (``utils/profiling.py``): a batch is the unit ``engine.batch``
+(with the device's time), holding ``engine.upload`` (the host-to-device
+copies; counter ``engine.upload_bytes``), ``engine.forward`` (the
+model's dispatch, with the device's time) and, in ``infer_batch``,
+``engine.readback`` (the host waiting for the forward and the copy
+back).
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from effi_mvs_plus_tpu_torch.models import (EffiMVSConfig, build_model,
                                              freeze_kernel_weights)
 from effi_mvs_plus_tpu_torch.parallel import distributed as D
 from effi_mvs_plus_tpu_torch.parallel import mesh as par
+from effi_mvs_plus_tpu_torch.utils import profiling
+from effi_mvs_plus_tpu_torch.utils.profiling import span
 
 _STAGES = ("stage1", "stage2", "stage3")
 
@@ -63,7 +72,8 @@ class InferenceEngine:
                         if buckets else None)
 
     def _run(self, imgs, proj_matrices, depth_values):
-        with torch.inference_mode(), par.use_policy(self._policy):
+        with torch.inference_mode(), par.use_policy(self._policy), \
+                span("engine.forward", self.device):
             out = self.model(imgs, proj_matrices, depth_values)
             return (out["depth"][-1].float(),
                     out["photometric_confidence"].float())
@@ -75,7 +85,9 @@ class InferenceEngine:
         return None
 
     def _to_device(self, a):
-        return torch.as_tensor(np.asarray(a)).to(self.device)
+        a = np.asarray(a)
+        profiling.count("engine.upload_bytes", a.nbytes)
+        return torch.as_tensor(a).to(self.device)
 
     def _infer_device(self, batch):
         """Launch the forward for one batch; returns DEVICE tensors
@@ -91,10 +103,12 @@ class InferenceEngine:
                 imgs = np.pad(np.asarray(imgs), ((0, 0), (0, 0), (0, bh - H),
                                                  (0, bw - W), (0, 0)))
                 crop = (H, W)
-        projs = {k: self._to_device(batch["proj_matrices"][k])
-                 for k in _STAGES}
-        depth, conf = self._run(self._to_device(imgs), projs,
-                                self._to_device(batch["depth_values"]))
+        with span("engine.upload"):
+            projs = {k: self._to_device(batch["proj_matrices"][k])
+                     for k in _STAGES}
+            imgs = self._to_device(imgs)
+            depth_values = self._to_device(batch["depth_values"])
+        depth, conf = self._run(imgs, projs, depth_values)
         if crop is not None:
             H, W = crop
             depth = depth[:, :H, :W]
@@ -105,8 +119,10 @@ class InferenceEngine:
         """batch: dict with imgs (B,V,H,W,3), proj_matrices stage dicts,
         depth_values (B,Nd).  Returns (depth (B,H,W), conf (B,H/2,W/2))
         as numpy."""
-        depth, conf = self._infer_device(batch)
-        return depth.cpu().numpy(), conf.cpu().numpy()
+        with span("engine.batch", self.device):
+            depth, conf = self._infer_device(batch)
+            with span("engine.readback"):
+                return depth.cpu().numpy(), conf.cpu().numpy()
 
     @staticmethod
     def _write_batch(outdir, batch, depth, conf):
@@ -157,8 +173,8 @@ class InferenceEngine:
         images/ in the reference output layout (view-sharded: rank 0
         writes).  Returns
         {'maps', 'total_s', 's_per_map', 'device_s'}: host wall time, and
-        on a GPU the forwards' device time from CUDA events (None on the
-        CPU).
+        on a GPU the device time of the batches' uploads and forwards (the
+        ``engine.batch`` spans', a tracing block each; None on the CPU).
 
         Pipelined: the forward for batch N+1 is launched while a writer
         thread waits for batch N's outputs and writes its files.  The
@@ -177,15 +193,14 @@ class InferenceEngine:
                 if item is None:
                     return
                 try:
-                    batch, depth, conf, events = item
+                    batch, depth, conf, rec = item
                     if writes:
                         wrote = self._write_batch(outdir, batch, depth, conf)
                     else:
                         wrote = depth.shape[0]
-                    if events is not None:
-                        events[1].synchronize()
-                        state["device_ms"] += events[0].elapsed_time(
-                            events[1])
+                    if on_gpu:
+                        state["device_ms"] += rec.device_ms(
+                            "engine.batch") or 0.0
                     state["maps"] += wrote
                     if verbose:
                         print(f"inferred {state['maps']} maps", flush=True)
@@ -206,21 +221,22 @@ class InferenceEngine:
         t0 = time.perf_counter()
         th = threading.Thread(target=writer, daemon=True)
         th.start()
+        dropped = 0
         for batch in loader:
-            events = None
-            if on_gpu:
-                events = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                events[0].record()
-            depth, conf = self._infer_device(batch)
-            if on_gpu:
-                events[1].record()
-            if not put((batch, depth, conf, events)):
+            with profiling.tracing() as rec, \
+                    span("engine.batch", self.device):
+                depth, conf = self._infer_device(batch)
+            dropped += rec.dropped
+            if not put((batch, depth, conf, rec)):
                 break
         put(None)
         th.join()
         if state["err"] is not None:
             raise state["err"]
+        if on_gpu and dropped:
+            raise RuntimeError(f"{dropped} spans past the tracer's CAPACITY "
+                               "(an outer tracing block is full): the "
+                               "device time would read low")
         total = time.perf_counter() - t0
         return {"maps": state["maps"], "total_s": total,
                 "s_per_map": total / max(state["maps"], 1),

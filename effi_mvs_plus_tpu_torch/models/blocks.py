@@ -24,6 +24,7 @@ from torch import nn as tnn
 from effi_mvs_plus_tpu_torch import nn
 from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru
 from effi_mvs_plus_tpu_torch.parallel import mesh as par
+from effi_mvs_plus_tpu_torch.utils.profiling import span
 
 
 def _upsample_nearest2x(x):
@@ -296,12 +297,13 @@ class UpdateBlock(tnn.Module):
         inv_depth = inv_depth.float()
         inv_depths = []
         for _ in range(seq_len):
-            inv_depth = inv_depth.detach()
-            depth = scale_inv_depth(inv_depth)[1]
-            cost = get_cost(depth)
-            x = self.encoder(inv_depth.to(cdt), cost, context)
-            hidden = self.depth_gru(hidden, x)
-            delta = self.depth_head(hidden)
-            inv_depth = inv_depth + delta.float()
-            inv_depths.append(inv_depth)
+            with span("model.gru_iter"):
+                inv_depth = inv_depth.detach()
+                depth = scale_inv_depth(inv_depth)[1]
+                cost = get_cost(depth)
+                x = self.encoder(inv_depth.to(cdt), cost, context)
+                hidden = self.depth_gru(hidden, x)
+                delta = self.depth_head(hidden)
+                inv_depth = inv_depth + delta.float()
+                inv_depths.append(inv_depth)
         return hidden, self.upsample_mask(hidden), inv_depths

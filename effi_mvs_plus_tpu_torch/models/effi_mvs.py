@@ -63,6 +63,10 @@ entropy and its view weights are gathered along H.  Both at once
 (``views,depth,spatial``): the views for the FPN, the warps and
 ``PixelwiseNet``, D for the summed volumes, the rows for the GRU.
 Without a policy the hooks are identities.
+
+Spans (``utils/profiling.py``): ``model.features`` (the FPN and the
+context net) and ``model.stage1`` to ``model.stage3``, each with the
+device's time under tracing; each GRU iteration is ``model.gru_iter``.
 """
 
 from __future__ import annotations
@@ -79,6 +83,7 @@ from effi_mvs_plus_tpu_torch.ops import (
     convex_upsample, cuda_warp, depth_regression, photometric_confidence,
     resample_volume_at_depths)
 from effi_mvs_plus_tpu_torch.parallel import mesh as par
+from effi_mvs_plus_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +104,10 @@ class EffiMVSConfig:
     feat_ratio: Tuple[int, ...] = (2, 2, 2)
     num_stage: int = 3
     compute_dtype: torch.dtype = torch.float32   # or torch.bfloat16
+
+
+# the spans of the forward's stages (``utils/profiling.py``)
+_STAGE_SPANS = ("model.stage1", "model.stage2", "model.stage3")
 
 
 def _bshape(x, ndim):
@@ -237,24 +246,26 @@ class EffiMVS(tnn.Module):
             this rank's rows; per-batch scalars as they are."""
             return keep(x, 2, depth_all and x.shape[2] > 1)
 
-        # feature extraction: the views through the FPN in one batch, with
-        # per-view BN statistics in train mode
-        with par.view_stats(V - 1, has_ref=True), \
-                par.row_blocks(not views_all):
-            feats = self.feature(
-                imgs_own.reshape(B * Vo, *imgs_own.shape[2:]),
-                stat_groups=Vo)
-        feats = {k: v.reshape(B, Vo, *v.shape[1:]) for k, v in feats.items()}
-        cnet = self.cnet_depth(imgs[:, 0, rows])
+        with span("model.features", imgs.device):
+            # feature extraction: the views through the FPN in one batch, with
+            # per-view BN statistics in train mode
+            with par.view_stats(V - 1, has_ref=True), \
+                    par.row_blocks(not views_all):
+                feats = self.feature(
+                    imgs_own.reshape(B * Vo, *imgs_own.shape[2:]),
+                    stat_groups=Vo)
+            feats = {k: v.reshape(B, Vo, *v.shape[1:])
+                     for k, v in feats.items()}
+            cnet = self.cnet_depth(imgs[:, 0, rows])
 
-        hiddens, contexts = [], []
-        for s in range(cfg.num_stage):
-            h, inp = torch.split(cnet[f"stage{s + 1}"],
-                                 [cfg.hdim_stage[s],
-                                  cnet[f"stage{s + 1}"].shape[-1]
-                                  - cfg.hdim_stage[s]], dim=-1)
-            hiddens.append(torch.tanh(h))
-            contexts.append(torch.relu(inp))
+            hiddens, contexts = [], []
+            for s in range(cfg.num_stage):
+                h, inp = torch.split(cnet[f"stage{s + 1}"],
+                                     [cfg.hdim_stage[s],
+                                      cnet[f"stage{s + 1}"].shape[-1]
+                                      - cfg.hdim_stage[s]], dim=-1)
+                hiddens.append(torch.tanh(h))
+                contexts.append(torch.relu(inp))
 
         depth_predictions = []
         view_weights = None
@@ -263,145 +274,151 @@ class EffiMVS(tnn.Module):
         vol_dmin = vol_dmax = None            # their per-pixel depth ranges
 
         for s in range(cfg.num_stage):
-            f = feats[f"stage{s + 1}"]                       # (B,Vo,h,w,C)
-            P = geometry.compose_projection(                 # (B,Vo,4,4)
-                own_views(proj_matrices[f"stage{s + 1}"]).float())
-            interval_s = depth_interval * cfg.depth_intervals_ratio[s]
-            rots, trs = _relative_projections(P)
-            # the warps: ref rows y0 .. y0 + h - 1 against the whole source
-            # features (under spatial sharding, gathered along H; where the
-            # warps run over all rows, the reference too)
-            ref_fea, src = f[:, 0], f[:, 1:]
-            y0 = 0
-            if gather_in:
-                ref_fea, src = par.gather_rows(ref_fea, src, axis=-3)
-            elif not views_all:
-                (src,) = par.gather_rows(src, axis=2)
-                y0 = par.row_slice(src.shape[2]).start or 0
-            h, w = ref_fea.shape[1], ref_fea.shape[2]
-
-            def warp(depth, ref_fea=ref_fea, src=src, rots=rots, trs=trs,
-                     y0=y0):
-                return cuda_warp.warp_correlate_views(ref_fea, src, rots, trs,
-                                                      depth, y0)
-
-            # the hypotheses this rank warps, and its block of them kept
-            # after the view sums (all of them without depth sharding)
-            pre, post = par.depth_slices(cfg.ndepths[s],
-                                         stage_depth_multiple(s))
-            if s == 0:
-                # ----- initial full sweep -----
-                # the per-batch sweep stays an expanded (B,D,h,w) view
-                drs = geometry.depth_range_samples_global(
-                    depth_values, cfg.ndepths[0], 1, 1)
-                depth_hyps = (1.0 / drs).expand(B, cfg.ndepths[0], h, w)
-                sims = warp(depth_hyps[:, pre])              # (B,Vo-1,D,h,w)
-                # PixelwiseNet on this rank's rows of the entropy, unless
-                # the views run over all rows; its view weights gathered
-                # for the warps' rows
-                entropy = keep(_sweep_entropy(sims), 2, gather_in)
-                with par.view_stats(V - 1, has_ref=False), \
-                        par.row_blocks(not views_all):
-                    vw = self.PixelwiseNet(
-                        entropy.reshape(B * (Vo - 1), *entropy.shape[2:],
-                                        1).to(dt),
-                        stat_groups=Vo - 1)
-                view_weights = vw.reshape(B, Vo - 1, *entropy.shape[2:])
+            with span(_STAGE_SPANS[s], imgs.device):
+                f = feats[f"stage{s + 1}"]                       # (B,Vo,h,w,C)
+                P = geometry.compose_projection(                 # (B,Vo,4,4)
+                    own_views(proj_matrices[f"stage{s + 1}"]).float())
+                interval_s = depth_interval * cfg.depth_intervals_ratio[s]
+                rots, trs = _relative_projections(P)
+                # the warps: ref rows y0 .. y0 + h - 1 against the whole source
+                # features (under spatial sharding, gathered along H; where the
+                # warps run over all rows, the reference too)
+                ref_fea, src = f[:, 0], f[:, 1:]
+                y0 = 0
                 if gather_in:
-                    (view_weights,) = par.gather_rows(view_weights, axis=2)
-                vw_ = view_weights[:, :, None]               # (B,Vo-1,1,h,w)
-                sim_sum, w_sum = par.sum_views(
-                    torch.sum(sims * vw_, dim=1),            # (B,D,h,w)
-                    torch.sum(vw_, dim=1))                   # (B,1,h,w)
-                # the 3-D part: on this rank's rows, or on all rows where
-                # depth splits it
-                similarity = keep(sim_sum / (w_sum + 1e-6), 2,
-                                  rows_out)[:, post][..., None]
+                    ref_fea, src = par.gather_rows(ref_fea, src, axis=-3)
+                elif not views_all:
+                    (src,) = par.gather_rows(src, axis=2)
+                    y0 = par.row_slice(src.shape[2]).start or 0
+                h, w = ref_fea.shape[1], ref_fea.shape[2]
 
-                with par.row_blocks(not depth_all):
-                    prob_pre, _ = self.cost_regularization(similarity.to(dt))
-                reg_volume, cur_volume = par.gather_depths(
-                    prob_pre.float(), similarity[..., 0].float())
-                prob = torch.softmax(gru_rows(reg_volume), dim=1)
-                init_depth = depth_regression(prob,
-                                              keep(depth_hyps, 2, warp_all))
-                conf = photometric_confidence(prob)
-                photometric_confidence_map = _repeat2x_hw(
-                    _repeat2x_hw(conf, 1, 2), 1, 2)          # x4 nearest
+                def warp(depth, ref_fea=ref_fea, src=src, rots=rots, trs=trs,
+                         y0=y0):
+                    return cuda_warp.warp_correlate_views(
+                        ref_fea, src, rots, trs, depth, y0)
 
-                vol_dmin = _bshape(depth_min_g, 4)
-                vol_dmax = _bshape(depth_max_g, 4)
-                cur_depth = init_depth                       # (B,h,w)
-                depth_predictions.append(init_depth)
-            else:
-                # ----- dynamic cost volume around the current depth -----
-                cur_depth = depth_predictions[-1].detach()
-                view_weights = _repeat2x_hw(view_weights, 2, 3)
-                # the depths the warps take: all rows where the warps run
-                # over all rows, else this rank's
-                (warp_depth,) = (par.gather_rows(cur_depth, axis=1)
-                                 if warp_all else (cur_depth,))
-                drs_disp = geometry.depth_range_samples_local(
-                    1.0 / warp_depth, cfg.ndepths[s], _bshape(interval_s, 3))
-                depth_samples = 1.0 / drs_disp               # (B,8,h,w)
+                # the hypotheses this rank warps, and its block of them kept
+                # after the view sums (all of them without depth sharding)
+                pre, post = par.depth_slices(cfg.ndepths[s],
+                                             stage_depth_multiple(s))
+                if s == 0:
+                    # ----- initial full sweep -----
+                    # the per-batch sweep stays an expanded (B,D,h,w) view
+                    drs = geometry.depth_range_samples_global(
+                        depth_values, cfg.ndepths[0], 1, 1)
+                    depth_hyps = (1.0 / drs).expand(B, cfg.ndepths[0], h, w)
+                    sims = warp(depth_hyps[:, pre])          # (B,Vo-1,D,h,w)
+                    # PixelwiseNet on this rank's rows of the entropy, unless
+                    # the views run over all rows; its view weights gathered
+                    # for the warps' rows
+                    entropy = keep(_sweep_entropy(sims), 2, gather_in)
+                    with par.view_stats(V - 1, has_ref=False), \
+                            par.row_blocks(not views_all):
+                        vw = self.PixelwiseNet(
+                            entropy.reshape(B * (Vo - 1), *entropy.shape[2:],
+                                            1).to(dt),
+                            stat_groups=Vo - 1)
+                    view_weights = vw.reshape(B, Vo - 1, *entropy.shape[2:])
+                    if gather_in:
+                        (view_weights,) = par.gather_rows(view_weights, axis=2)
+                    vw_ = view_weights[:, :, None]           # (B,Vo-1,1,h,w)
+                    sim_sum, w_sum = par.sum_views(
+                        torch.sum(sims * vw_, dim=1),            # (B,D,h,w)
+                        torch.sum(vw_, dim=1))                   # (B,1,h,w)
+                    # the 3-D part: on this rank's rows, or on all rows where
+                    # depth splits it
+                    similarity = keep(sim_sum / (w_sum + 1e-6), 2,
+                                      rows_out)[:, post][..., None]
 
-                sims = warp(depth_samples[:, pre])
-                vw_ = view_weights[:, :, None]
-                sim_sum, w_sum = par.sum_views(torch.sum(sims * vw_, dim=1),
-                                               torch.sum(vw_, dim=1))
-                # (B,8,h,w,1), or this rank's D-block or row block of it
-                fresh = keep(sim_sum / (w_sum + 1e-6), 2,
-                             rows_out)[:, post][..., None]
-                depth_samples = keep(depth_samples, 2, rows_out)
+                    with par.row_blocks(not depth_all):
+                        prob_pre, _ = self.cost_regularization(
+                            similarity.to(dt))
+                    reg_volume, cur_volume = par.gather_depths(
+                        prob_pre.float(), similarity[..., 0].float())
+                    prob = torch.softmax(gru_rows(reg_volume), dim=1)
+                    init_depth = depth_regression(
+                        prob, keep(depth_hyps, 2, warp_all))
+                    conf = photometric_confidence(prob)
+                    photometric_confidence_map = _repeat2x_hw(
+                        _repeat2x_hw(conf, 1, 2), 1, 2)          # x4 nearest
 
-                new_dmax = depth_samples[:, 0:1]             # (B,1,h,w)
-                new_dmin = depth_samples[:, -1:]
+                    vol_dmin = _bshape(depth_min_g, 4)
+                    vol_dmax = _bshape(depth_max_g, 4)
+                    cur_depth = init_depth                       # (B,h,w)
+                    depth_predictions.append(init_depth)
+                else:
+                    # ----- dynamic cost volume around the current depth -----
+                    cur_depth = depth_predictions[-1].detach()
+                    view_weights = _repeat2x_hw(view_weights, 2, 3)
+                    # the depths the warps take: all rows where the warps run
+                    # over all rows, else this rank's
+                    (warp_depth,) = (par.gather_rows(cur_depth, axis=1)
+                                     if warp_all else (cur_depth,))
+                    drs_disp = geometry.depth_range_samples_local(
+                        1.0 / warp_depth, cfg.ndepths[s],
+                        _bshape(interval_s, 3))
+                    depth_samples = 1.0 / drs_disp               # (B,8,h,w)
 
-                # cross-scale propagation: previous-stage volumes resampled
-                # at the new hypotheses (nearest-downsampled x2), fused in
-                ds_low = depth_samples[:, pre][:, post, ::2, ::2]
-                reg_low = resample_volume_at_depths(
-                    reg_volume, ds_low, vol_dmin, vol_dmax)
-                cur_low = resample_volume_at_depths(
-                    cur_volume, ds_low, vol_dmin, vol_dmax)
-                with par.row_blocks(not depth_all):
-                    reg_volume = getattr(self, f"CSP_R{s}")(
-                        fresh.to(dt), reg_low[..., None].to(dt)).float()
-                    cur_volume = getattr(self, f"CSP_C{s}")(
-                        fresh.to(dt), cur_low[..., None].to(dt)).float()
-                reg_volume, cur_volume = par.gather_depths(reg_volume,
-                                                           cur_volume)
-                vol_dmin, vol_dmax = new_dmin, new_dmax
+                    sims = warp(depth_samples[:, pre])
+                    vw_ = view_weights[:, :, None]
+                    sim_sum, w_sum = par.sum_views(
+                        torch.sum(sims * vw_, dim=1), torch.sum(vw_, dim=1))
+                    # (B,8,h,w,1), or this rank's D-block or row block of it
+                    fresh = keep(sim_sum / (w_sum + 1e-6), 2,
+                                 rows_out)[:, post][..., None]
+                    depth_samples = keep(depth_samples, 2, rows_out)
 
-            # ----- ConvGRU refinement over the stored volumes -----
-            inv_cur_depth = geometry.depth_to_disp(
-                cur_depth, _bshape(depth_min_g, 3), _bshape(depth_max_g, 3))
+                    new_dmax = depth_samples[:, 0:1]             # (B,1,h,w)
+                    new_dmin = depth_samples[:, -1:]
 
-            def get_cost(depth, cur_volume=gru_rows(cur_volume),
-                         reg_volume=gru_rows(reg_volume),
-                         vol_dmin=gru_rows(vol_dmin),
-                         vol_dmax=gru_rows(vol_dmax), interval_s=interval_s):
-                """depth (B,h,w,1) -> (B,h,w,CostNum*cost_num) lookup."""
-                drs = geometry.depth_range_samples_local(
-                    1.0 / depth[..., 0], cfg.CostNum, _bshape(interval_s, 3))
-                ds = 1.0 / drs                               # (B,K,h,w)
-                c_cur = resample_volume_at_depths(cur_volume, ds, vol_dmin,
-                                                  vol_dmax)
-                c_reg = resample_volume_at_depths(reg_volume, ds, vol_dmin,
-                                                  vol_dmax)
-                return torch.cat([c_cur, c_reg], dim=1).permute(
-                    0, 2, 3, 1).to(dt)
+                    # cross-scale propagation: previous-stage volumes resampled
+                    # at the new hypotheses (nearest-downsampled x2), fused in
+                    ds_low = depth_samples[:, pre][:, post, ::2, ::2]
+                    reg_low = resample_volume_at_depths(
+                        reg_volume, ds_low, vol_dmin, vol_dmax)
+                    cur_low = resample_volume_at_depths(
+                        cur_volume, ds_low, vol_dmin, vol_dmax)
+                    with par.row_blocks(not depth_all):
+                        reg_volume = getattr(self, f"CSP_R{s}")(
+                            fresh.to(dt), reg_low[..., None].to(dt)).float()
+                        cur_volume = getattr(self, f"CSP_C{s}")(
+                            fresh.to(dt), cur_low[..., None].to(dt)).float()
+                    reg_volume, cur_volume = par.gather_depths(reg_volume,
+                                                               cur_volume)
+                    vol_dmin, vol_dmax = new_dmin, new_dmax
 
-            ub = getattr(self, f"update_block_depth{s + 1}")
-            _, mask, inv_depth_list = ub(
-                hiddens[s].to(dt), get_cost, inv_cur_depth[..., None],
-                contexts[s].to(dt), cfg.gru_iters[s], scale_inv_depth)
+                # ----- ConvGRU refinement over the stored volumes -----
+                inv_cur_depth = geometry.depth_to_disp(
+                    cur_depth, _bshape(depth_min_g, 3),
+                    _bshape(depth_max_g, 3))
 
-            for inv_d in inv_depth_list:
-                depth_predictions.append(
-                    scale_inv_depth(inv_d[..., 0].float())[1])
-            inv_up = convex_upsample(inv_depth_list[-1][..., 0].float(),
-                                     mask.float(), cfg.feat_ratio[s])
-            depth_predictions.append(scale_inv_depth(inv_up)[1])
+                def get_cost(depth, cur_volume=gru_rows(cur_volume),
+                             reg_volume=gru_rows(reg_volume),
+                             vol_dmin=gru_rows(vol_dmin),
+                             vol_dmax=gru_rows(vol_dmax),
+                             interval_s=interval_s):
+                    """depth (B,h,w,1) -> (B,h,w,CostNum*cost_num) lookup."""
+                    drs = geometry.depth_range_samples_local(
+                        1.0 / depth[..., 0], cfg.CostNum,
+                        _bshape(interval_s, 3))
+                    ds = 1.0 / drs                               # (B,K,h,w)
+                    c_cur = resample_volume_at_depths(cur_volume, ds, vol_dmin,
+                                                      vol_dmax)
+                    c_reg = resample_volume_at_depths(reg_volume, ds, vol_dmin,
+                                                      vol_dmax)
+                    return torch.cat([c_cur, c_reg], dim=1).permute(
+                        0, 2, 3, 1).to(dt)
+
+                ub = getattr(self, f"update_block_depth{s + 1}")
+                _, mask, inv_depth_list = ub(
+                    hiddens[s].to(dt), get_cost, inv_cur_depth[..., None],
+                    contexts[s].to(dt), cfg.gru_iters[s], scale_inv_depth)
+
+                for inv_d in inv_depth_list:
+                    depth_predictions.append(
+                        scale_inv_depth(inv_d[..., 0].float())[1])
+                inv_up = convex_upsample(inv_depth_list[-1][..., 0].float(),
+                                         mask.float(), cfg.feat_ratio[s])
+                depth_predictions.append(scale_inv_depth(inv_up)[1])
 
         return depth_predictions, photometric_confidence_map

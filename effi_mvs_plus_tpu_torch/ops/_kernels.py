@@ -104,10 +104,22 @@ def build(verbose=False) -> tuple[Path, float]:
     return lib, time.perf_counter() - t0
 
 
+_built_s = None     # the seconds library() spent in build()
+
+
+def build_seconds() -> float | None:
+    """The seconds ``library()`` spent building the library in this
+    process: 0.0 where it found the library built, None before its first
+    call.  On a fresh checkout this is the nvcc share of the first run's
+    set-up."""
+    return _built_s
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
-    path, _ = build()
+    global _built_s
+    path, _built_s = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)

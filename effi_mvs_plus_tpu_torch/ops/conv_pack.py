@@ -20,7 +20,8 @@ shared memory a few units a stage (``units_per_stage`` in the header):
 on the weights' device.  The wrappers pack on every call unless handed a
 ``Packed`` made once where the weights are frozen
 (``models.freeze_kernel_weights``): packing costs a dozen small operations
-a launch.
+a launch.  Each packing at call time adds one to the counter
+``conv_pack.packs`` (``utils/profiling.py``), so a frozen model reads 0.
 """
 
 from __future__ import annotations

@@ -22,10 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from effi_mvs_plus_tpu_torch.ops import _kernels, conv_pack
-
-# Launches of the CUDA kernel in this process (the wrapper adds one per
-# launch; nothing else touches it but a caller that resets it to 0).
-launches = 0
+from effi_mvs_plus_tpu_torch.utils import profiling
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # channel chains the kernel is built for (csrc/conv_chain.cu EFFI_CHAINS):
@@ -76,7 +73,6 @@ def pack(specs, dtype):
 
 
 def _chain_cuda(x, specs, packed):
-    global launches
     B, H, W, _ = x.shape
     chans = (x.shape[-1],) + tuple(w.shape[0] for w, _ in specs)
     if x.dtype not in _DTYPES:
@@ -92,6 +88,7 @@ def _chain_cuda(x, specs, packed):
             raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
     if packed is None:
         packed = pack(specs, x.dtype)
+        profiling.count("conv_pack.packs")
     packed.check(x.dtype, x.device)
     c = list(chans) + [0] * (4 - len(chans))
     lib = _kernels.library()
@@ -101,7 +98,7 @@ def _chain_cuda(x, specs, packed):
             out.data_ptr(), B, H, W, *c, _DTYPES[x.dtype],
             _kernels.stream_of(out))
     _kernels.check(status, "conv_chain")
-    launches += 1
+    profiling.count("k4.launches")
     return out
 
 

@@ -27,10 +27,7 @@ import torch
 
 from effi_mvs_plus_tpu_torch import nn
 from effi_mvs_plus_tpu_torch.ops import _kernels, conv_pack
-
-# Launches of the CUDA kernel in this process (the wrapper adds one per
-# launch; nothing else touches it but a caller that resets it to 0).
-launches = 0
+from effi_mvs_plus_tpu_torch.utils import profiling
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HIDDEN = (16, 32, 48)
@@ -93,7 +90,6 @@ def _pack(wz, wr, wq, bz, br, bq, dtype):
 
 
 def _gru_cuda(h, x, wz, wr, wq, bz, br, bq, packed=None):
-    global launches
     B, H, W, hd = h.shape
     dev = h.device
     if h.dtype not in _DTYPES or x.dtype != h.dtype:
@@ -119,6 +115,7 @@ def _gru_cuda(h, x, wz, wr, wq, bz, br, bq, packed=None):
             raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
     if packed is None:
         packed = _pack(wz, wr, wq, bz, br, bq, h.dtype)
+        profiling.count("conv_pack.packs")
     packed.check(h.dtype, dev)
     lib = _kernels.library()
     with torch.cuda.device(dev):
@@ -127,7 +124,7 @@ def _gru_cuda(h, x, wz, wr, wq, bz, br, bq, packed=None):
             packed.bias.data_ptr(), out.data_ptr(), B, H, W, hd,
             _DTYPES[h.dtype], _kernels.stream_of(out))
     _kernels.check(status, "conv_gru")
-    launches += 1
+    profiling.count("k2.launches")
     return out
 
 

@@ -29,12 +29,7 @@ from __future__ import annotations
 import torch
 
 from effi_mvs_plus_tpu_torch.ops import _kernels, warp
-
-# Launches of the CUDA kernels in this process, forward (K1) and backward
-# (K3) (each wrapper adds one per launch; nothing else touches them but a
-# caller that resets them to 0).
-launches = 0
-bwd_launches = 0
+from effi_mvs_plus_tpu_torch.utils import profiling
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CHANNELS = (8, 16, 32)
@@ -151,7 +146,6 @@ def _views_cuda(ref_fea, src_feas, rots, transs, depth, stats=None, y0=0):
     """K1 on ref rows y0 .. y0 + H - 1 against the whole source maps.
     ``stats``, an int64 tensor of 2 on the card, gains the taps read from
     the windows and from device memory."""
-    global launches
     rots, transs = _check_inputs(ref_fea, src_feas, rots, transs, depth, y0)
     B, H, W, C = ref_fea.shape
     V, Hs, D = src_feas.shape[1], src_feas.shape[2], depth.shape[1]
@@ -167,7 +161,7 @@ def _views_cuda(ref_fea, src_feas, rots, transs, depth, stats=None, y0=0):
             *depth.stride(), dc, cap, _stats_ptr(stats, 2, dev),
             _DTYPES[ref_fea.dtype], _kernels.stream_of(out))
     _kernels.check(status, "warp_correlate")
-    launches += 1
+    profiling.count("k1.launches")
     return out
 
 
@@ -177,7 +171,6 @@ def _views_bwd_cuda(ref_fea, src_feas, rots, transs, depth, g, stats=None,
     for the cotangent g (B,V,D,H,W) of ``_views_cuda``'s output (ref rows
     from y0).  ``stats``, an int64 tensor of 3 on the card, gains the adds
     into the windows, into d_src directly and of the windows' flush."""
-    global bwd_launches
     rots, transs = _check_inputs(ref_fea, src_feas, rots, transs, depth, y0)
     B, H, W, C = ref_fea.shape
     V, Hs, D = src_feas.shape[1], src_feas.shape[2], depth.shape[1]
@@ -200,7 +193,7 @@ def _views_bwd_cuda(ref_fea, src_feas, rots, transs, depth, g, stats=None,
             *depth.stride(), dc, cap, _stats_ptr(stats, 3, dev),
             _DTYPES[ref_fea.dtype], _kernels.stream_of(d_ref))
     _kernels.check(status, "warp_correlate_bwd")
-    bwd_launches += 1
+    profiling.count("k3.launches")
     return d_ref, d_src.to(src_feas.dtype)
 
 

@@ -301,11 +301,11 @@ def _rank_main(rank, world, port, backend, device, job):
         resolve_device(dev)
     if job["setup"] is not None:
         job["setup"]()
-    from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru, cuda_warp
+    from effi_mvs_plus_tpu_torch.utils import profiling
 
     def launches():
-        return {"k1": cuda_warp.launches, "k2": cuda_gru.launches,
-                "k3": cuda_warp.bwd_launches, "k4": cuda_conv.launches}
+        return {k: profiling.counter(f"{k}.launches")
+                for k in ("k1", "k2", "k3", "k4")}
     ref = torch.load(job["ref"], weights_only=False)
     state, cfg, batch = ref["state"], ref["cfg"], ref["batch"]
     report = {"world": world, "backend": torch.distributed.get_backend(),

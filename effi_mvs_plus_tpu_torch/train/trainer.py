@@ -16,6 +16,12 @@ the forward and the loss compute what the whole batch computes, and the
 gradients are averaged over the grid's groups before AdamW
 (``ShardingPolicy.sync_gradients``).
 
+Spans (``utils/profiling.py``): a step is the unit ``train.step``,
+holding ``train.upload`` (``batch_to_device``), ``train.forward`` (the
+model and the loss), ``train.backward`` (the backward and the gradients'
+sync) and ``train.optimizer`` (the gradients' reset, AdamW, the schedule
+and the metrics), the last three with the device's time under tracing.
+
 Checkpoints are ``model_NNNNNN.ckpt`` files written with ``torch.save``:
 ``{"model", "optimizer", "scheduler", "epoch"}``, where ``"model"`` is the
 state dict in the reference's own names.  ``load_checkpoint`` and
@@ -41,6 +47,7 @@ from effi_mvs_plus_tpu_torch.io import params_from_jax
 from effi_mvs_plus_tpu_torch.parallel import mesh as par
 from effi_mvs_plus_tpu_torch.train.loss import (abs_depth_error, mvs_loss,
                                                 threshold_error)
+from effi_mvs_plus_tpu_torch.utils.profiling import span
 
 _MODEL_INPUTS = ("imgs", "proj_matrices", "depth_values")
 
@@ -94,23 +101,28 @@ def make_train_step(model, optimizer, scheduler, loss_rate=1.0, seed=0,
     nn.use_generator(model, gen)
 
     def step(batch):
-        batch = batch_to_device(batch, dev)
-        model.train()
-        with par.use_policy(policy):
-            out = model(*(batch[k] for k in _MODEL_INPUTS))
-            loss, per = mvs_loss(out["depth"], batch["depth"], batch["mask"],
-                                 loss_rate)
-        optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        if policy is not None:
-            policy.sync_gradients(model)
-        optimizer.step()
-        scheduler.step()
-        with torch.no_grad():
-            metrics = {"loss": loss.detach(),
-                       **_final_metrics(out["depth"][-1], batch)}
-        metrics.update({k: v.detach() for k, v in per.items()})
-        return metrics
+        with span("train.step"):
+            with span("train.upload"):
+                batch = batch_to_device(batch, dev)
+            model.train()
+            with par.use_policy(policy), span("train.forward", dev):
+                out = model(*(batch[k] for k in _MODEL_INPUTS))
+                loss, per = mvs_loss(out["depth"], batch["depth"],
+                                     batch["mask"], loss_rate)
+            with span("train.optimizer", dev):
+                optimizer.zero_grad(set_to_none=True)
+            with span("train.backward", dev):
+                loss.backward()
+                if policy is not None:
+                    policy.sync_gradients(model)
+            with span("train.optimizer", dev):
+                optimizer.step()
+                scheduler.step()
+                with torch.no_grad():
+                    metrics = {"loss": loss.detach(),
+                               **_final_metrics(out["depth"][-1], batch)}
+                metrics.update({k: v.detach() for k, v in per.items()})
+            return metrics
 
     return step
 

@@ -205,6 +205,29 @@ def test_run_profile_writes_trace(tree, tmp_path, capsys):
                                        "trace.json"))
 
 
+def test_run_profile_trace_shows_the_program_spans(tree, tmp_path):
+    """The profile's chrome trace holds the train step's spans
+    (``utils/profiling.span``), nested as the step runs them."""
+    import json
+    root, listfile = tree
+    args = cli.build_parser().parse_args(
+        ["--mode", "profile", "--device", "cpu", "--batch_size", "1",
+         "--num_workers", "1", "--testviews", "3", "--logdir",
+         str(tmp_path), "--dataset", "blend"])
+    test_ds = tds.BlendedMVSDataset(root, listfile, "test", 3, 384)
+    cli.run_profile(args, cli.make_config(args), test_ds, "cpu")
+    with open(os.path.join(str(tmp_path), "trace", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("ph") == "X"
+             and e.get("name", "").startswith(("train.", "model."))}
+    assert {"train.step", "train.upload", "train.forward", "train.backward",
+            "train.optimizer", "model.features", "model.stage1",
+            "model.stage2", "model.stage3", "model.gru_iter"} <= set(spans)
+    step, fwd = spans["train.step"], spans["train.forward"]
+    assert step["ts"] <= fwd["ts"] and \
+        fwd["ts"] + fwd["dur"] <= step["ts"] + step["dur"]
+
+
 def _common(root, listfile, logdir, views=3):
     return ["--device", "cpu", "--trainpath", root, "--trainlist", listfile,
             "--testlist", listfile, "--logdir", logdir, "--loadckpt", NPZ,

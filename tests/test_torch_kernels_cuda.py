@@ -12,6 +12,7 @@ from effi_mvs_plus_tpu_torch.models.blocks import (ConvGRU, FeatureNet,
                                                   freeze_kernel_weights)
 from effi_mvs_plus_tpu_torch.ops import (cuda_conv, cuda_gru, cuda_warp,
                                          rounding_bounds)
+from effi_mvs_plus_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -88,9 +89,9 @@ def _check_window_stats(case, stats, windows=True):
 def test_warp_kernel_matches_plain(gpu, monkeypatch, case, C, dtype):
     _, ref, src, rots, trs, depth = _warp_case(gpu, monkeypatch, case, C,
                                                dtype, 0)
-    n = cuda_warp.launches
+    n = profiling.counter("k1.launches")
     got = cuda_warp.warp_correlate_views(ref, src, rots, trs, depth)
-    assert cuda_warp.launches == n + 1
+    assert profiling.counter("k1.launches") == n + 1
     want = cuda_warp._views_torch(ref.float(), src.float(), rots, trs, depth)
     stats = torch.zeros(2, dtype=torch.int64, device=gpu)
     again = cuda_warp._views_cuda(ref, src, rots, trs, depth, stats)
@@ -158,9 +159,11 @@ def test_warp_bwd_kernel_matches_plain(gpu, monkeypatch, case, C, dtype):
     ref, src = ref.clone().requires_grad_(), src.clone().requires_grad_()
     g = torch.randn((*src.shape[:2], *depth.shape[1:]), generator=g_,
                     device=gpu).to(dtype)
-    n, nb = cuda_warp.launches, cuda_warp.bwd_launches
+    n, nb = (profiling.counter("k1.launches"),
+             profiling.counter("k3.launches"))
     cuda_warp.warp_correlate_views(ref, src, rots, trs, depth).backward(g)
-    assert (cuda_warp.launches, cuda_warp.bwd_launches) == (n + 1, nb + 1)
+    assert (profiling.counter("k1.launches"),
+            profiling.counter("k3.launches")) == (n + 1, nb + 1)
     want = _bwd_plain(ref.detach(), src.detach(), rots, trs, depth, g)
     stats = torch.zeros(3, dtype=torch.int64, device=gpu)
     again = cuda_warp._views_bwd_cuda(ref.detach(), src.detach(), rots, trs,
@@ -224,12 +227,12 @@ def test_gru_kernel_matches_plain(gpu, hd, dtype):
     # 19x37 is ragged against the 8x16 tile, in both directions
     h, x, gru = _gru_case(gpu, 2, 19, 37, hd, seed=1)
     h, x = h.to(dtype), x.to(dtype)
-    n = cuda_gru.launches
+    n = profiling.counter("k2.launches")
     with torch.inference_mode():
         got = cuda_gru.gru_step(h, x, gru)
         _check_gru(got, h, x, gru)
     torch.cuda.synchronize()
-    assert cuda_gru.launches == n + 1 and got.dtype == dtype
+    assert profiling.counter("k2.launches") == n + 1 and got.dtype == dtype
 
 
 @pytest.mark.parametrize("hd", [16, 32, 48])
@@ -292,9 +295,9 @@ def test_conv_chain_kernel_matches_plain(gpu, chans, dtype):
     B, H, W = 2, 21, 45                   # ragged against every tile
     x = torch.randn((B, H, W, chans[0]), generator=g, device=gpu).to(dtype)
     specs = _chain_specs(chans, g, gpu)
-    n = cuda_conv.launches
+    n = profiling.counter("k4.launches")
     got = cuda_conv.conv_bn_relu_chain(x, specs)
-    assert cuda_conv.launches == n + 1
+    assert profiling.counter("k4.launches") == n + 1
     want = cuda_conv._chain_torch(x, specs)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
@@ -329,15 +332,15 @@ def test_feature_net_takes_the_chain_at_inference_only(gpu):
     grad on or train mode runs the blocks; both agree in eval."""
     net = FeatureNet((8, 16, 32, 64), (32, 16, 8)).to(gpu).eval()
     x = torch.rand((2, 32, 48, 3), device=gpu)
-    n = cuda_conv.launches
+    n = profiling.counter("k4.launches")
     with torch.inference_mode():
         fused = net(x)
-    assert cuda_conv.launches == n + 4
+    assert profiling.counter("k4.launches") == n + 4
     unfused = net(x)
     net.train()
     with torch.no_grad():
         net(x)
-    assert cuda_conv.launches == n + 4
+    assert profiling.counter("k4.launches") == n + 4
     for k in fused:
         assert (fused[k] - unfused[k].detach()).abs().max() <= 2e-4
 
