@@ -10,9 +10,22 @@ source views or of the image rows (``parallel/mesh.py``), every rank
 gets the whole maps, and rank 0 writes them.  The JAX engine's in-process batch split (``_fit_devices``)
 becomes the CLIs' per-rank partition of scans and scenes.
 
+Copies on a CUDA device.  A pageable ``cudaMemcpy`` moves the bytes
+through the driver's own small pinned buffer on one host thread, about
+5.6 GB/s on the H100's host: 42% of a B=6 DTU batch at 1600x1184.  So
+the engine uploads through ``_PinnedRing``: a few pinned host slots that
+torch's intra-op threads fill chunk by chunk while the previous chunk's
+DMA runs on a copy stream, into device tensors of the plain copy's
+dtype, shape and bytes.  The maps come back into pinned host tensors
+(torch's caching host allocator), a fresh pair a call, so no later call
+overwrites what an earlier one returned.  On the CPU the copies are the
+plain ones.
+
 Spans (``utils/profiling.py``): a batch is the unit ``engine.batch``
 (with the device's time), holding ``engine.upload`` (the host-to-device
-copies; counter ``engine.upload_bytes``), ``engine.forward`` (the
+copies; counters ``engine.upload_bytes``, and on a CUDA device
+``engine.upload_staged_bytes``, the bytes that went through the ring,
+and ``engine.upload_chunks``, its slot fills), ``engine.forward`` (the
 model's dispatch, with the device's time) and, in ``infer_batch``,
 ``engine.readback`` (the host waiting for the forward and the copy
 back).
@@ -36,6 +49,82 @@ from effi_mvs_plus_tpu_torch.utils import profiling
 from effi_mvs_plus_tpu_torch.utils.profiling import span
 
 _STAGES = ("stage1", "stage2", "stage3")
+
+# The staging ring: SLOTS pinned host buffers of SLOT_BYTES each, sized on
+# the H100 (PERF.md §6).  A fixed size, whatever the batch.
+SLOT_BYTES = 32 << 20
+SLOTS = 4
+
+
+def chunk_plan(nbytes, slot_bytes=SLOT_BYTES):
+    """The byte ranges [(start, stop)] in which an upload of ``nbytes``
+    goes through the ring, one slot each, in order."""
+    return [(a, min(a + slot_bytes, nbytes))
+            for a in range(0, nbytes, slot_bytes)]
+
+
+class _PinnedRing:
+    """Host-to-device copies of numpy arrays through pinned slots.
+
+    Each array's bytes go in ``chunk_plan`` order: torch's intra-op
+    threads fill the next slot from the pageable array while the copy
+    stream's DMA of the previous slot runs; a slot is refilled only after
+    the event of the copy that last read it.  The copy stream first waits
+    for the current stream (the destinations may reuse memory its queued
+    work still reads), and the current stream waits for the copy stream
+    before anything else runs on it, so the destinations, allocated on
+    the current stream, need no ``record_stream``."""
+
+    def __init__(self, device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.slots = [torch.empty(SLOT_BYTES, dtype=torch.uint8,
+                                  pin_memory=True) for _ in range(SLOTS)]
+        self.events = [torch.cuda.Event() for _ in range(SLOTS)]
+        self.next = 0
+
+    def upload(self, a):
+        """A device tensor bitwise equal to ``torch.from_numpy(a).to(
+        device)`` of the C-contiguous array ``a``."""
+        host = torch.from_numpy(a)
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        out = torch.empty_like(host, device=self.device)
+        src = host.view(-1).view(torch.uint8)
+        dst = out.view(-1).view(torch.uint8)
+        try:
+            with torch.cuda.stream(self.stream):
+                self._copy(src, dst)
+        finally:
+            cur.wait_stream(self.stream)
+        return out
+
+    def _copy(self, src, dst):
+        """Bytes ``src`` (host) into ``dst`` (device) slot by slot."""
+        for start, stop in chunk_plan(src.numel()):
+            k = self.next
+            self.next = (k + 1) % SLOTS
+            self.events[k].synchronize()        # its last DMA has read it
+            slot = self.slots[k][:stop - start]
+            slot.copy_(src[start:stop])
+            dst[start:stop].copy_(slot, non_blocking=True)
+            self.events[k].record(self.stream)
+            profiling.count("engine.upload_chunks")
+        profiling.count("engine.upload_staged_bytes", src.numel())
+
+
+def _to_host(t):
+    """A device tensor as numpy.  From a CUDA device through a pinned host
+    tensor of its own (torch's caching host allocator), which the
+    returned array keeps alive."""
+    if t.device.type != "cuda":
+        return t.cpu().numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    done.synchronize()
+    return host.numpy()
 
 
 class InferenceEngine:
@@ -70,6 +159,7 @@ class InferenceEngine:
         self.cfg = cfg
         self.buckets = (sorted(buckets, key=lambda hw: hw[0] * hw[1])
                         if buckets else None)
+        self._ring = None               # pinned staging, at the first upload
 
     def _run(self, imgs, proj_matrices, depth_values):
         with torch.inference_mode(), par.use_policy(self._policy), \
@@ -85,8 +175,14 @@ class InferenceEngine:
         return None
 
     def _to_device(self, a):
+        """A host array on the device: through the pinned ring on a CUDA
+        device where the array is C-contiguous, else the plain copy."""
         a = np.asarray(a)
         profiling.count("engine.upload_bytes", a.nbytes)
+        if self.device.type == "cuda" and a.flags.c_contiguous:
+            if self._ring is None:
+                self._ring = _PinnedRing(self.device)
+            return self._ring.upload(a)
         return torch.as_tensor(a).to(self.device)
 
     def _infer_device(self, batch):
@@ -122,14 +218,14 @@ class InferenceEngine:
         with span("engine.batch", self.device):
             depth, conf = self._infer_device(batch)
             with span("engine.readback"):
-                return depth.cpu().numpy(), conf.cpu().numpy()
+                return _to_host(depth), _to_host(conf)
 
     @staticmethod
     def _write_batch(outdir, batch, depth, conf):
         """Host side of one batch: wait for the device tensors and write
         depth_est/ confidence/ cams/ images/ in the reference layout."""
-        depth = depth.cpu().numpy()                # waits for the forward
-        conf = conf.cpu().numpy()
+        depth = _to_host(depth)                    # waits for the forward
+        conf = _to_host(conf)
         for b in range(depth.shape[0]):
             template = batch["filename"][b]
             depth_path = os.path.join(

@@ -17,12 +17,13 @@ tracer on (``utils/profiling.tracing``) and a marker kernel launched
 at the end (``portbench/lib/spans.py``) in the "on" stretches.  Prints
 one JSON line a cell and seed: the stretches' ms a unit by mode (the
 tracing-on cost), and from each "on" stretch the per-unit readings that
-spans and counters give (device ms by span, the upload's GB/s, the
-device's idle ms by innermost span, idle inside ``train.step``,
-counters), beside the benchmark's own readers of the same stretch
-(busy, idle, copies, upload ms) for the checks between them.  Last, the
-host cost of a span with tracing off and on.  ``--out`` also writes the
-lines to a file.
+spans and counters give (device ms by span, the upload's GB/s, its
+share staged through the engine's pinned ring and the ring's slot fills
+a unit, the device's idle ms by innermost span, idle inside
+``train.step``, counters), beside the benchmark's own readers of the
+same stretch (busy, idle, copies, upload ms) for the checks between
+them.  Last, the host cost of a span with tracing off and on.  ``--out``
+also writes the lines to a file.
 """
 
 import argparse
@@ -106,6 +107,12 @@ def readings(prof, rec, marker_ns, window_s, units, t0_ns, t1_ns, serve):
         up = rec.counters.get("engine.upload_bytes", 0)
         up_ns = rec.host_ns("engine.upload")
         out["engine.upload_gbps.serve"] = up / up_ns if up_ns else None
+        # the share of the upload's bytes that went through the engine's
+        # pinned ring (1.0 for every CUDA batch), and its slot fills
+        staged = rec.counters.get("engine.upload_staged_bytes", 0)
+        out["engine.upload_staged_share"] = staged / up if up else None
+        out["engine.upload_chunks"] = rec.counters.get(
+            "engine.upload_chunks", 0) / units
         for n in ("features",) + tuple(f"stage{s}" for s in (1, 2, 3)):
             out[f"model.{n}_ms.serve"] = dm.get(f"model.{n}")
         parts = sum(dm.get(f"model.{n}", 0) for n in

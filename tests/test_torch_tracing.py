@@ -12,6 +12,7 @@ import torch
 
 from effi_mvs_plus_tpu_torch.data import cams as camio
 from effi_mvs_plus_tpu_torch.infer import InferenceEngine
+from effi_mvs_plus_tpu_torch.infer.engine import SLOT_BYTES, chunk_plan
 from effi_mvs_plus_tpu_torch.models import EffiMVS, EffiMVSConfig
 from effi_mvs_plus_tpu_torch.train.optim import make_optimizer
 from effi_mvs_plus_tpu_torch.train.trainer import make_train_step
@@ -112,6 +113,35 @@ def test_engine_batch_spans_units_and_bytes(state_dict, monkeypatch):
                  for b in batches)
     assert rec.counters == {"engine.upload_bytes": upload}
     assert [d.shape for d, _ in outs] == [(1, H, W)] * 2
+
+
+def test_a_cpu_engine_copies_plainly_and_stages_nothing(state_dict):
+    """On the CPU the upload is the plain ``torch.as_tensor``: the arrays'
+    own memory, contiguous or not, no pinned ring and no staging
+    counter."""
+    engine = InferenceEngine(state_dict, device="cpu")
+    a = np.arange(24, dtype=np.float32).reshape(2, 3, 4)
+    arrays = (a, a[:, ::2])
+    with tracing() as rec:
+        outs = [engine._to_device(x) for x in arrays]
+    assert rec.counters == {"engine.upload_bytes": sum(x.nbytes
+                                                        for x in arrays)}
+    for x, t in zip(arrays, outs):
+        assert np.shares_memory(t.numpy(), x)
+        assert np.array_equal(t.numpy(), x)
+    assert engine._ring is None
+
+
+@pytest.mark.parametrize("nbytes,slot", [(0, 8), (8, 8), (9, 8), (43, 8),
+                                         (3 * SLOT_BYTES + 1, SLOT_BYTES)])
+def test_the_chunk_plan_covers_every_byte_once(nbytes, slot):
+    """The ring's plan: empty for no bytes, else back-to-back ranges of at
+    most a slot from 0 to the end, as few as the slot allows."""
+    plan = chunk_plan(nbytes, slot)
+    assert len(plan) == -(-nbytes // slot)
+    assert all(0 < stop - start <= slot for start, stop in plan)
+    edges = [0] + [stop for _, stop in plan]
+    assert plan == list(zip(edges[:-1], edges[1:])) and edges[-1] == nbytes
 
 
 def test_a_scene_traces_each_batch_as_its_own_block(state_dict, tmp_path):
