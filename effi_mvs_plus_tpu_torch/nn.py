@@ -12,6 +12,8 @@ shipped state dict.
 * ``conv2d/conv3d``  — symmetric zero padding, floor striding.  As in the
   JAX package the bias is added after the convolution, in the output's
   dtype: in bf16 that is a second rounding, which the reference has too.
+  On the card a 3-D weight that trains takes its gradient from
+  ``ops/conv_wgrad.py``, a split-K GEMM in place of cuDNN's.
 * ``conv_transpose3d`` — torch ``ConvTranspose3d(stride, padding,
   output_padding)``: output size per dim
   ``(in-1)*stride - 2*pad + k + output_padding``.
@@ -60,6 +62,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from effi_mvs_plus_tpu_torch.ops import conv_wgrad
 from effi_mvs_plus_tpu_torch.parallel import mesh as par
 
 MOMENTUM = 0.1
@@ -87,15 +90,19 @@ def conv2d(x, w, b=None, stride=1, padding=0):
 
 def conv3d(x, w, b=None, stride=1, padding=0):
     """x: (B,D,H,W,I); w: (O,I,kd,kh,kw).  Torch Conv3d semantics."""
-    return _add_bias(_cl(F.conv3d(_cf(x), w.to(x.dtype), None, stride,
-                                  padding)), b)
+    w = w.to(x.dtype)
+    conv = conv_wgrad.conv3d if conv_wgrad.applies(x, w) else F.conv3d
+    return _add_bias(_cl(conv(_cf(x), w, None, stride, padding)), b)
 
 
 def conv_transpose3d(x, w, b=None, stride=1, padding=0, output_padding=0):
     """x: (B,D,H,W,I); w: (I,O,kd,kh,kw).  Torch ConvTranspose3d
     semantics."""
-    return _add_bias(_cl(F.conv_transpose3d(
-        _cf(x), w.to(x.dtype), None, stride, padding, output_padding)), b)
+    w = w.to(x.dtype)
+    conv = conv_wgrad.conv_transpose3d if conv_wgrad.applies(x, w) \
+        else F.conv_transpose3d
+    return _add_bias(_cl(conv(_cf(x), w, None, stride, padding,
+                              output_padding)), b)
 
 
 def softmax(x, dim):

@@ -26,7 +26,9 @@ inside it.  While a ``torch.profiler`` records, each span is also a
 always on, plain integer adds by name: ``k1.launches`` to
 ``k4.launches`` (the kernel wrappers' launches, K3 the warp's
 backward), ``conv_pack.packs`` (K2/K4 operands packed at call time),
-``engine.upload_bytes``.
+``conv_wgrad.calls`` and ``conv_wgrad.patch_bytes`` (3-D weight
+gradients through ``ops/conv_wgrad.py``'s split-K GEMM, and the bytes of
+their patch matrices), ``engine.upload_bytes``.
 
 A tracing block also reads one (``time.time_ns()``,
 ``time.perf_counter_ns()``) pair when it starts, its ``anchor``: Kineto
