@@ -38,14 +38,20 @@ imports nothing of JAX.  It
 3. drives the serving path: ``InferenceEngine(device="cuda")`` with the
    shipped DTU weights at the DTU eval config answers fp32 and bf16
    requests and writes a scene with ``save_scene_depths``, with the
-   kernels' launch counts (K1, K2 and K4) reset just before and read just
-   after; one fp32 request's 13 depth maps and confidence are held
-   against the same forward with the plain versions in place of the
-   kernels;
+   kernels' launch counts (K1, K2, K4 and conv3d_reg: 3, 9, 8 and 25 a
+   forward) reset just before and read just after; one fp32 request's 13
+   depth maps and confidence are held against the same forward with the
+   plain versions in place of the kernels;
    and K4 (the fused 3x3 conv + folded BN + ReLU chain of the FPN stem)
    at every chain of both FPNs at the T&T and DTU eval configs, fp32 and
    bf16, on the inputs an inference forward hands it, against its plain
-   version, with the unfused cuDNN chain's time beside it;
+   version, with the unfused cuDNN chain's time beside it; and
+   conv3d_reg (``ops/cuda_conv3d.py``: one 3-D layer of CostRegNet or a
+   CSP block, conv + BN + ReLU + residual fused) at every layer of both
+   modules at the serving cells' shapes (T&T B=2 1920x1056 96/8/8, DTU
+   B=6 1600x1184 48/8/8; the CSP blocks at stages 2 and 3), fp32 and
+   bf16, against its plain version at the card tests' tolerance, with the
+   blocks' time (cuDNN, BN, ReLU, add, cat) beside it;
 4. times the DTU eval forward with the fused stem (inference mode) and
    with the unfused blocks (grad mode, parameters frozen), fp32 and bf16,
    in turns;
@@ -55,7 +61,7 @@ imports nothing of JAX.  It
    One step's loss and gradients are held against the same step with the
    plain versions, and the step with the kernels is run twice to show the
    run-to-run spread; then timed steps, each launching 3 K1, 3 K3 and 9
-   K2, with samples/s and peak memory;
+   K2 and no conv3d_reg (grad on), with samples/s and peak memory;
 6. drives the T&T reconstruction path: renders a textured plane at 1.6 m
    on an 11-view rig at 1920x1056 (focal 1.16 W, band 0.4-3.5 m), runs
    ``cli/test_tank.py``'s ``save_depths`` (``TanksDataset`` -> ``Loader``
@@ -125,12 +131,13 @@ imports nothing of JAX.  It
    npz-loaded engine's;
 11. runs the compile-check entry (``entry.py``): ``entry()``'s forward on
    the card against the CPU, and ``dryrun_multichip(2)``;
-12. prints each phase's seconds, a ``{"kernels": [...]}`` line (K2 and K4
-   entries name the CUDA route of each layer in ``cuda_route``: ``mma``
-   on the tensor cores, ``fma`` on the CUDA cores; K1-K4 carry their
-   launches in the cache-fed run, in the resumed JAX run and its served
-   forward, and K1-K3 in a ``depth,spatial`` rank's step), the card's
-   name and power limit, then the device line last.
+12. prints each phase's seconds, a ``{"kernels": [...]}`` line (K2, K4
+   and conv3d_reg entries name the CUDA route of each layer in
+   ``cuda_route``: ``mma`` on the tensor cores, ``fma`` on the CUDA
+   cores; K1-K4 and conv3d_reg carry their launches in the cache-fed
+   run, in the resumed JAX run and its served forward, and K1-K3 in a
+   ``depth,spatial`` rank's step), the card's name and power limit, then
+   the device line last.
 
 Any failure raises and the exit code is nonzero.  Without a GPU it exits
 1 and prints no result.
@@ -138,6 +145,7 @@ Any failure raises and the exit code is nonzero.  Without a GPU it exits
 
 import contextlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -398,9 +406,11 @@ def check_depth_maps(what, out_k, out_p, floor):
 @contextlib.contextmanager
 def plain_kernels(cuda_warp, cuda_gru, cuda_conv):
     """Route the model's kernel calls to their plain versions (for the
-    full-forward comparisons only)."""
+    full-forward comparisons only), the fused 3-D layers'
+    (``ops/cuda_conv3d.py``) too."""
+    from effi_mvs_plus_tpu_torch.ops import cuda_conv3d
     saved = (cuda_warp.warp_correlate_views, cuda_gru.gru_step,
-             cuda_conv.conv_bn_relu_chain)
+             cuda_conv.conv_bn_relu_chain, cuda_conv3d.conv3d_reg)
 
     def warp_plain(ref, src, rots, trs, depth, y0=0):
         return cuda_warp._views_torch(ref, src, rots, trs, depth,
@@ -413,13 +423,17 @@ def plain_kernels(cuda_warp, cuda_gru, cuda_conv):
 
     def chain_plain(x, specs, packed=None):
         return cuda_conv._chain_torch(x, specs)
+
+    def reg_plain(x, layer, x2=None, res=None):
+        return cuda_conv3d._reg_torch(x, layer, x2, res)
     (cuda_warp.warp_correlate_views, cuda_gru.gru_step,
-     cuda_conv.conv_bn_relu_chain) = (warp_plain, gru_plain, chain_plain)
+     cuda_conv.conv_bn_relu_chain, cuda_conv3d.conv3d_reg) = (
+        warp_plain, gru_plain, chain_plain, reg_plain)
     try:
         yield
     finally:
         (cuda_warp.warp_correlate_views, cuda_gru.gru_step,
-         cuda_conv.conv_bn_relu_chain) = saved
+         cuda_conv.conv_bn_relu_chain, cuda_conv3d.conv3d_reg) = saved
 
 
 def main():
@@ -472,10 +486,14 @@ def run(torch, card):
         chain_entries = conv_chain_phases(torch, root, gen)
     torch.cuda.empty_cache()
     seconds["k4_phases"] = lap()
+    with torch.inference_mode():
+        reg_entries = conv3d_reg_phases(torch, root, gen)
+    torch.cuda.empty_cache()
+    seconds["conv3d_reg_phases"] = lap()
 
     # ---- 3. serving path, and the DTU forward with and without K4 ----
     with torch.inference_mode():
-        k1_main, k2_main, k4_main = serving_path(torch, sd)
+        k1_main, k2_main, k4_main, reg_main = serving_path(torch, sd)
     seconds["serving_path"] = lap()
     stem_ab(torch, sd)
     torch.cuda.empty_cache()
@@ -538,10 +556,19 @@ def run(torch, card):
         e["launches_device_cache"] = cache["k4_launches"]
         e["launches_jax_checkpoint_resume"] = jax_resume["k4_launches"]
         e["launches_jax_checkpoint_serve"] = jax_serve["k4_launches"]
+    for e in reg_entries:
+        e["launches"] = reg_main
+        e["launches_tnt"] = tank["conv3d_reg_launches"]
+        e["launches_train"] = train["conv3d_reg_launches"]
+        e["launches_finetune_test"] = test["conv3d_reg_launches"]
+        e["launches_device_cache"] = cache["conv3d_reg_launches"]
+        e["launches_jax_checkpoint_resume"] = jax_resume[
+            "conv3d_reg_launches"]
+        e["launches_jax_checkpoint_serve"] = jax_serve["conv3d_reg_launches"]
     log({"phase": "seconds", **seconds,
          "total": time.perf_counter() - t_run})
-    print(json.dumps({"kernels": entries + chain_entries + rows_entries}),
-          flush=True)
+    print(json.dumps({"kernels": entries + chain_entries + reg_entries
+                      + rows_entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -730,7 +757,7 @@ def timed_request(torch, eng, batch):
 
 def serving_path(torch, sd):
     """The engine at the DTU eval config, fp32 and bf16; returns the K1,
-    K2 and K4 launch counts of the run."""
+    K2, K4 and conv3d_reg launch counts of the run."""
     from effi_mvs_plus_tpu_torch.data import cams as camio
     from effi_mvs_plus_tpu_torch.data.pfm import read_pfm
     from effi_mvs_plus_tpu_torch.infer import InferenceEngine
@@ -748,7 +775,8 @@ def serving_path(torch, sd):
 
     def counts():
         n = launch_counts()
-        return n["k1_launches"], n["k2_launches"], n["k4_launches"]
+        return (n["k1_launches"], n["k2_launches"], n["k4_launches"],
+                n["conv3d_reg_launches"])
 
     reset_launches()
     forwards = 0
@@ -756,10 +784,11 @@ def serving_path(torch, sd):
     for i in range(4):
         ms, d32, c32 = timed_request(torch, eng32, batch)
         forwards += 1
-        if counts() != (3 * forwards, 9 * forwards, 8 * forwards):
+        if counts() != (3 * forwards, 9 * forwards, 8 * forwards,
+                        25 * forwards):
             raise AssertionError(
-                f"after {forwards} forwards: K1, K2, K4 launched "
-                f"{counts()} times (want 3, 9 and 8 each)")
+                f"after {forwards} forwards: K1, K2, K4, conv3d_reg "
+                f"launched {counts()} times (want 3, 9, 8 and 25 each)")
         if i:
             t32.append(ms)
     t16 = []
@@ -781,11 +810,12 @@ def serving_path(torch, sd):
                     raise AssertionError(f"{kind} {b}: {arr.shape}")
             camio.read_cam_file(os.path.join(out, "scan1", "cams",
                                              f"{b:08d}_cam.txt"))
-    k1_main, k2_main, k4_main = counts()
-    if (k1_main, k2_main, k4_main) != (3 * forwards, 9 * forwards,
-                                       8 * forwards) or not k1_main:
-        raise AssertionError(f"main path: {forwards} forwards, K1, K2, K4 "
-                             f"launched {counts()} times")
+    k1_main, k2_main, k4_main, reg_main = counts()
+    if (k1_main, k2_main, k4_main, reg_main) != (
+            3 * forwards, 9 * forwards, 8 * forwards, 25 * forwards) \
+            or not k1_main:
+        raise AssertionError(f"main path: {forwards} forwards, K1, K2, K4, "
+                             f"conv3d_reg launched {counts()} times")
 
     d32, c32 = d32.cpu().numpy(), c32.cpu().numpy()
     d16, c16 = d16.cpu().numpy(), c16.cpu().numpy()
@@ -832,7 +862,8 @@ def serving_path(torch, sd):
     log({"phase": "serving_path", "config": "dtu B6 V5 1152x864 48/8/8",
          "weights": "checkpoints/model_dtu.npz", "forwards": forwards,
          "k1_launches": k1_main, "k2_launches": k2_main,
-         "k4_launches": k4_main, "fp32_request_ms": t32, "bf16_request_ms": t16,
+         "k4_launches": k4_main, "conv3d_reg_launches": reg_main,
+         "fp32_request_ms": t32, "bf16_request_ms": t16,
          "fp32_maps_per_s": B / (ms32 / 1e3),
          "bf16_maps_per_s": B / (ms16 / 1e3),
          "save_scene_depths": stats,
@@ -842,7 +873,7 @@ def serving_path(torch, sd):
          "bf16_vs_fp32_median_depth_abs": float(np.median(np.abs(d16 - d32))),
          "depth_range_mm": [lo, hi],
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
-    return k1_main, k2_main, k4_main
+    return k1_main, k2_main, k4_main, reg_main
 
 
 def plain_bwd(torch, cuda_warp, ref, src, rots, trs, depth, y0=0):
@@ -1074,7 +1105,8 @@ def training_path(torch, sd):
 
     def counts():
         n = launch_counts()
-        return n["k1_launches"], n["k3_launches"], n["k2_launches"]
+        return (n["k1_launches"], n["k3_launches"], n["k2_launches"],
+                n["conv3d_reg_launches"])
 
     # one step's loss and gradients, kernels against plain versions, from
     # the same weights, batch and dropout seed
@@ -1106,11 +1138,11 @@ def training_path(torch, sd):
         losses.append(float(metrics["loss"]))
         if i >= warm:
             step_ms.append(start.elapsed_time(end))
-        if counts() != (3 * (i + 1), 3 * (i + 1), 9 * (i + 1)):
-            raise AssertionError(f"after {i + 1} steps: K1, K3, K2 "
-                                 f"launched {counts()} times")
+        if counts() != (3 * (i + 1), 3 * (i + 1), 9 * (i + 1), 0):
+            raise AssertionError(f"after {i + 1} steps: K1, K3, K2, "
+                                 f"conv3d_reg launched {counts()} times")
     batches.close()
-    k1, k3, k2 = counts()
+    k1, k3, k2, reg = counts()
     if not np.isfinite(losses).all():
         raise AssertionError(f"training losses {losses}")
     if not any(not torch.equal(p.detach(), params0[n])
@@ -1131,9 +1163,10 @@ def training_path(torch, sd):
          "steps": warm + timed, "timed": timed,
          "step_ms": step_ms, "samples_per_s": B / (ms / 1e3),
          "losses": losses, "k1_launches": k1, "k3_launches": k3,
-         "k2_launches": k2,
+         "k2_launches": k2, "conv3d_reg_launches": reg,
          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
-    return {"k1_launches": k1, "k2_launches": k2, "k3_launches": k3}
+    return {"k1_launches": k1, "k2_launches": k2, "k3_launches": k3,
+            "conv3d_reg_launches": reg}
 
 
 def kernels_against_plain(torch, model, batch, saved, rerun=False):
@@ -1151,7 +1184,8 @@ def kernels_against_plain(torch, model, batch, saved, rerun=False):
 
     def counts():
         n = launch_counts()
-        return n["k1_launches"], n["k3_launches"], n["k2_launches"]
+        return (n["k1_launches"], n["k3_launches"], n["k2_launches"],
+                n["conv3d_reg_launches"])
 
     def loss_and_grads():
         model.load_state_dict(saved)      # a train forward moves BN stats
@@ -1169,12 +1203,12 @@ def kernels_against_plain(torch, model, batch, saved, rerun=False):
 
     reset_launches()
     loss_k, grads_k = loss_and_grads()
-    if counts() != (3, 3, 9):
-        raise AssertionError(f"one step launched K1, K3, K2 {counts()} "
-                             f"times, not 3, 3, 9")
+    if counts() != (3, 3, 9, 0):
+        raise AssertionError(f"one step launched K1, K3, K2, conv3d_reg "
+                             f"{counts()} times, not 3, 3, 9, 0")
     with plain_kernels(cuda_warp, cuda_gru, cuda_conv):
         loss_p, grads_p = loss_and_grads()
-    if counts() != (3, 3, 9):
+    if counts() != (3, 3, 9, 0):
         raise AssertionError("the plain step launched a kernel")
     out = (loss_k, loss_p,
            *compare_grads(loss_k, grads_k, loss_p, grads_p))
@@ -1320,6 +1354,117 @@ def conv_chain_phases(torch, root, gen):
                     library_ms=median_ms(torch, cudnn, 3)))
                 log({"phase": "kernels", **entries[-1]})
         del model, imgs
+        torch.cuda.empty_cache()
+    return entries
+
+
+# the serving cells' shapes (portbench's dtu_eval-b6 and tnt_eval_fp32-b2,
+# in both dtypes) for the fused 3-D layers: B, H, W, stage-1 hypotheses
+# and the weights; the CSP blocks run at stages 2 and 3 on 8 hypotheses
+REG_CONFIGS = {"tnt": dict(B=2, H=1056, W=1920, D=96, ckpt="model_tank.npz"),
+               "dtu": dict(B=6, H=1184, W=1600, D=48, ckpt="model_dtu.npz")}
+
+
+def check_reg(what, got, want, dtype):
+    """A fused 3-D layer against its plain version, elementwise, at the
+    card tests' tolerance (tests/test_torch_conv3d_reg_cuda.py): fp32
+    1e-5 of the largest output plus 1e-6 of each (the same fp32 sums in
+    another order); bf16 one bf16 step of each output (2^-7: a sum within
+    fp32 noise of a rounding boundary may round either way) plus 1e-5 of
+    the largest.  Returns the max abs error."""
+    got, want = got.double(), want.double()
+    scale = float(want.abs().max())
+    tol = (1e-5 * scale + 1e-6 * want.abs() if dtype == "float32"
+           else 2.0 ** -7 * want.abs() + 1e-5 * scale)
+    err = (got - want).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(
+            f"conv3d_reg {what}: kernel differs from plain beyond the "
+            f"tolerance (by {float((err - tol).max()):.3e}, max abs "
+            f"{float(err.max()):.3e})")
+    return float(err.max())
+
+
+def conv3d_reg_phases(torch, root, gen):
+    """The fused 3-D layers (``ops/cuda_conv3d.py``) against their plain
+    version at every layer of CostRegNet (stage 1) and of a CSP block at
+    stages 2 and 3, at the serving cells' shapes (``REG_CONFIGS``), fp32
+    and bf16, on the inputs and checkpoint weights a served forward hands
+    them (seeded volumes in place of the warps' similarities); library_ms
+    is the layer through the blocks (cuDNN, BN, ReLU, the residual add,
+    the cat), the path with grad on."""
+    from effi_mvs_plus_tpu_torch.io import load_npz_checkpoint
+    from effi_mvs_plus_tpu_torch.models import EffiMVSConfig, build_model
+    from effi_mvs_plus_tpu_torch.ops import conv_pack, cuda_conv3d
+
+    entries = []
+    real = cuda_conv3d.conv3d_reg
+    for cname, c in REG_CONFIGS.items():
+        model = build_model(
+            load_npz_checkpoint(os.path.join(root, "checkpoints", c["ckpt"])),
+            EffiMVSConfig(ndepths=(c["D"], 8, 8)), device="cuda")
+        B, H, W = c["B"], c["H"], c["W"]
+
+        def vol(d, h, w):
+            return torch.rand((B, d, h, w, 1), generator=gen, device="cuda")
+        runs = (("cost_regularization", (vol(c["D"], H // 8, W // 8),)),
+                ("CSP_R1", (vol(8, H // 4, W // 4), vol(8, H // 8, W // 8))),
+                ("CSP_R2", (vol(8, H // 2, W // 2), vol(8, H // 4, W // 4))))
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            for mname, vols in runs:
+                module = getattr(model, mname)
+                calls = []
+
+                def record(x, layer, x2=None, res=None):
+                    calls.append((x, layer, x2, res))
+                    return real(x, layer, x2, res)
+                cuda_conv3d.conv3d_reg = record
+                try:
+                    module(*(v.to(dtype) for v in vols))
+                finally:
+                    cuda_conv3d.conv3d_reg = real
+                if len(calls) != len(module.LAYERS):
+                    raise AssertionError(f"{mname}: {len(calls)} conv3d_reg "
+                                         f"calls")
+                for attr, (x, layer, x2, res) in zip(module.LAYERS, calls):
+                    blk = getattr(module, attr)
+
+                    def k(x=x, layer=layer, x2=x2, res=res):
+                        return real(x, layer, x2, res)
+
+                    def plain(x=x, layer=layer, x2=x2, res=res):
+                        return cuda_conv3d._reg_torch(x, layer, x2, res)
+
+                    def blocks_(x=x, x2=x2, res=res, blk=blk):
+                        y = blk(x if x2 is None else torch.cat([x, x2], -1))
+                        return y if res is None else res + y
+                    out = k()
+                    err = check_reg(f"{cname} {mname}.{attr} {dname}", out,
+                                    plain(), dname)
+                    ci, co = layer.channels
+                    taps = (27 / math.prod(layer.stride) if layer.transpose
+                            else 27)
+                    flops = 2 * out.numel() * ci * taps
+                    byts = sum(t.numel() * t.element_size()
+                               for t in (x, x2, res, out) if t is not None)
+                    bms, bby = bound(byts, flops, dname)
+                    ms = median_ms(torch, k, 5)
+                    entries.append(dict(
+                        name="conv3d_reg", route="cuda",
+                        cuda_route="mma" if conv_pack.mma_route(
+                            dtype, ci, co) else "fma",
+                        source="effi_mvs_plus_tpu_torch/csrc/conv3d_reg.cu",
+                        replaces=None, config=cname,
+                        layer=f"{mname}.{attr}", dtype=dname,
+                        shape=f"{tuple(x.shape)} -> {tuple(out.shape)}",
+                        launches_per_forward=25, max_abs_err=err, ms=ms,
+                        plain_ms=median_ms(torch, plain, 3),
+                        bound_ms=bms, bound_by=bby, share_of_bound=bms / ms,
+                        library_ms=median_ms(torch, blocks_, 3)))
+                    log({"phase": "kernels", **entries[-1]})
+                del calls
+        del model, runs
         torch.cuda.empty_cache()
     return entries
 
@@ -1521,7 +1666,7 @@ def tank_path(torch, root):
                   if k != "k3_launches"}
         maps = stats["maps"]
         if maps != V or tuple(counts.values()) != (3 * maps, 9 * maps,
-                                                   8 * maps):
+                                                   8 * maps, 25 * maps):
             raise AssertionError(f"T&T path: {maps} maps, launches {counts}")
         peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
         # the host reader's share: one request's 11 views decoded alone
@@ -1789,18 +1934,22 @@ def blend_batch(tree, listfile):
 _LAUNCHES_FROM = {}
 
 
+# the kernel wrappers' launch counters (``<name>.launches``)
+KERNELS = ("k1", "k2", "k3", "k4", "conv3d_reg")
+
+
 def launch_counts():
-    """Every kernel wrapper's launches (the tracer's ``kN.launches``
-    counters) since the last ``reset_launches``."""
+    """Every kernel wrapper's launches (the tracer's ``kN.launches`` and
+    ``conv3d_reg.launches`` counters) since the last ``reset_launches``."""
     from effi_mvs_plus_tpu_torch.utils import profiling
     return {f"{k}_launches": profiling.counter(f"{k}.launches")
-            - _LAUNCHES_FROM.get(k, 0) for k in ("k1", "k2", "k3", "k4")}
+            - _LAUNCHES_FROM.get(k, 0) for k in KERNELS}
 
 
 def reset_launches():
     from effi_mvs_plus_tpu_torch.utils import profiling
     _LAUNCHES_FROM.update({k: profiling.counter(f"{k}.launches")
-                           for k in ("k1", "k2", "k3", "k4")})
+                           for k in KERNELS})
 
 
 def timed_cli(torch, argv):
@@ -1868,7 +2017,7 @@ def finetune_path(torch, root, tree, listfile):
     evals = BLEND_TREE["epochs"] * (BLEND_TREE["views"] // BLEND["B"])
     want = {"k1_launches": 3 * (steps + evals),
             "k2_launches": 9 * (steps + evals), "k3_launches": 3 * steps,
-            "k4_launches": 8 * evals}
+            "k4_launches": 8 * evals, "conv3d_reg_launches": 25 * evals}
     if steps != BLEND_TREE["epochs"] * (BLEND_TREE["views"] // BLEND["B"]) \
             or ft != want:
         raise AssertionError(f"fine-tune: {steps} steps, launches {ft} "
@@ -1928,6 +2077,7 @@ def finetune_path(torch, root, tree, listfile):
     n_batches = -(-BLEND_TREE["views"] // BLEND["B"])
     if not (all(np.isfinite(v) for v in means.values())
             and test["k4_launches"] == 8 * n_batches
+            and test["conv3d_reg_launches"] == 25 * n_batches
             and test["k1_launches"] == 3 * n_batches):
         raise AssertionError(f"--mode test: {means}, launches {test}")
     log({"phase": "finetune_test_mode", "metrics": means, **test,
@@ -2353,7 +2503,7 @@ def device_cache_phase(torch, tree, listfile, write_s):
                     CACHE_TREE["views"] // B)
     want = {"k1_launches": 3 * (steps + evals),
             "k2_launches": 9 * (steps + evals), "k3_launches": 3 * steps,
-            "k4_launches": 8 * evals}
+            "k4_launches": 8 * evals, "conv3d_reg_launches": 25 * evals}
     runs = []
     cli.device_cache_loaders = recording
     try:
@@ -2542,7 +2692,7 @@ def _jax_checkpoint_run(torch, tree, listfile, sd, jax_pickle):
         T.make_train_step = real
     want = {"k1_launches": 3 * (steps + evals),
             "k2_launches": 9 * (steps + evals), "k3_launches": 3 * steps,
-            "k4_launches": 8 * evals}
+            "k4_launches": 8 * evals, "conv3d_reg_launches": 25 * evals}
     if len(step_ms) != steps or resumed != want:
         raise AssertionError(f"resumed run: {len(step_ms)} steps, launches "
                              f"{resumed} (want {want})")
@@ -2592,8 +2742,8 @@ def _jax_checkpoint_run(torch, tree, listfile, sd, jax_pickle):
     reset_launches()
     served = forward(weights)
     serve = launch_counts()
-    if (serve["k1_launches"], serve["k2_launches"],
-            serve["k4_launches"]) != (3, 9, 8):
+    if (serve["k1_launches"], serve["k2_launches"], serve["k4_launches"],
+            serve["conv3d_reg_launches"]) != (3, 9, 8, 25):
         raise AssertionError(f"served forward: launches {serve}")
     npz = [forward(sd) for _ in range(2)]
     bitwise = all(torch.equal(a, b) for a, b in zip(served, npz[0]))

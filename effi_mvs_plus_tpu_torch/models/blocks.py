@@ -11,9 +11,9 @@ under a depth policy their inputs are this rank's D-block of the volume
 and their 3-D layers exchange halos along D.  Inside
 ``parallel.row_blocks`` under a spatial policy every block's input is
 this rank's block of image rows: each convolution exchanges halo rows
-(``nn.Conv``), the ConvGRU's kernel and the stem chain run on the block
-with a halo as deep as they reach and are cropped.  Without a policy
-nothing changes.
+(``nn.Conv``), the ConvGRU's kernel, the stem chain and the fused 3-D
+layers run on the block with a halo as deep as they reach and are
+cropped.  Without a policy nothing changes.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch
 from torch import nn as tnn
 
 from effi_mvs_plus_tpu_torch import nn
-from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_gru
+from effi_mvs_plus_tpu_torch.ops import cuda_conv, cuda_conv3d, cuda_gru
 from effi_mvs_plus_tpu_torch.parallel import mesh as par
 from effi_mvs_plus_tpu_torch.utils.profiling import span
 
@@ -41,6 +41,61 @@ def stem_chain_applies(x, training):
     arithmetic: a bf16 forward fused there moves the noise-image depth
     maps past tests/test_torch_bf16.py's bound against JAX."""
     return x.is_cuda and not (training or torch.is_grad_enabled())
+
+
+def reg_applies(x, training):
+    """Whether ``CostRegNet`` and ``CSPBlock`` run their 3-D layers through
+    ``cuda_conv3d.conv3d_reg``, a fused launch a layer: where the stem
+    chain runs (a CUDA tensor, eval mode, grad off).  On a block of the
+    volume (a depth or a spatial policy) each layer runs on the block
+    with its halo (``_reg_layer``)."""
+    return stem_chain_applies(x, training)
+
+
+def _reg_layer(x, layer, x2=None, res=None):
+    """``cuda_conv3d.conv3d_reg`` of one layer on the whole volume, or,
+    inside ``parallel.depth_blocks`` under a depth policy or
+    ``parallel.row_blocks`` under a spatial one, on this rank's D-block
+    or row block (``_reg_on_block``)."""
+    if par.depth_parts() > 1:
+        return _reg_on_block(x, layer, x2, res, 1, par.depth_halo)
+    if par.row_parts() > 1:
+        return _reg_on_block(x, layer, x2, res, 2, par.row_halo)
+    return cuda_conv3d.conv3d_reg(x, layer, x2, res)
+
+
+def _reg_on_block(x, layer, x2, res, axis, halo):
+    """One fused layer on the block x (and x2) of a volume along ``axis``
+    (D: 1, H: 2), whose other blocks the model group's ranks hold: the
+    block gains the entries the layer reaches from its neighbours
+    (``halo``: ``parallel.depth_halo`` or ``row_halo``, zeros past the
+    volume's ends), the kernel runs on it with its own zero padding, and
+    the result is cropped to this rank's block of the output, so every
+    output entry is the whole volume's, summed in the same order.  The
+    kernel's padding then reaches only outputs that are cropped away:
+    stride 1 takes one entry from each side and crops the first and last
+    output; stride 2 takes two from the left, which keeps the block's
+    entries at the parity of the whole volume's, and crops the first
+    output; the stride-2 transpose takes one from the right and crops the
+    last two.  ``res`` is padded with zeros to the extended output.  A
+    stride-2 block must start on an even entry (n even)."""
+    s, n = layer.stride[axis - 1], x.shape[axis]
+    if s == 1:
+        lo, hi, start, m = 1, 1, 1, n
+    elif layer.transpose:
+        lo, hi, start, m = 0, 1, 0, 2 * n
+    elif n % 2:
+        raise ValueError(f"a stride-2 layer does not map a block of {n} "
+                         f"along axis {axis} onto a block")
+    else:
+        lo, hi, start, m = 2, 0, 1, n // 2
+    xe = halo(x, lo, hi)
+    x2e = None if x2 is None else halo(x2, lo, hi)
+    if res is not None:
+        size = cuda_conv3d.out_shape(xe, layer)[axis]
+        res = torch.nn.functional.pad(
+            res, (0, 0) * (4 - axis) + (start, size - start - m))
+    return cuda_conv3d.conv3d_reg(xe, layer, x2e, res).narrow(axis, start, m)
 
 
 def freeze_kernel_weights(model):
@@ -156,9 +211,14 @@ class PixelwiseNet(tnn.ModuleList):
 class CostRegNet(tnn.Module):
     """3-level 3-D U-Net.  x: (B,D,H,W,G) -> (prob_pre (B,D,H,W),
     pro (B,D,H,W,8)).  D, H, W must be divisible by 4, and so must a
-    D-block (``DEPTH_MULTIPLE``): two stride-2 layers halve D."""
+    D-block (``DEPTH_MULTIPLE``): two stride-2 layers halve D.  Where
+    ``reg_applies`` each of its 9 layers, with its BN, ReLU and residual,
+    is one ``cuda_conv3d.conv3d_reg`` (on a D-block or a row block, with
+    its halo: ``_reg_layer``); elsewhere the blocks run one by one."""
 
     DEPTH_MULTIPLE = 4
+    LAYERS = ("conv0", "conv1", "conv2", "conv3", "conv4", "conv5", "conv6",
+              "conv7", "prob")
 
     def __init__(self, G=1):
         super().__init__()
@@ -172,8 +232,20 @@ class CostRegNet(tnn.Module):
                                   output_padding=1)
         self.prob = nn.Conv(3, 8, 1, 3, padding=1, bias=False)
 
+    def _fused(self, x):
+        c0, c1, c2, c3, c4, c5, c6, c7, prob = (
+            cuda_conv3d.layer(getattr(self, n)) for n in self.LAYERS)
+        run = _reg_layer
+        conv1 = run(run(x.contiguous(), c0), c1)
+        conv3 = run(run(conv1, c2), c3)
+        up = run(run(run(conv3, c4), c5), c6, res=conv3)
+        pro = run(up, c7, res=conv1)
+        return run(pro, prob)[..., 0], pro
+
     def forward(self, x):
         with par.depth_blocks():
+            if reg_applies(x, self.training):
+                return self._fused(x)
             conv1 = self.conv1(self.conv0(x))
             conv3 = self.conv3(self.conv2(conv1))
             mid = self.conv5(self.conv4(conv3))
@@ -185,7 +257,11 @@ class CostRegNet(tnn.Module):
 class CSPBlock(tnn.Module):
     """Cross-scale propagation: fuse the resampled half-resolution
     previous-stage volume (B,D,H/2,W/2,1) into the fresh volume
-    (B,D,H,W,G).  Returns (B,D,H,W)."""
+    (B,D,H,W,G).  Returns (B,D,H,W).  Where ``reg_applies`` each of its 4
+    layers is one ``cuda_conv3d.conv3d_reg``, ``conv1`` reading ``down``
+    and ``emb`` as one input without their concatenation."""
+
+    LAYERS = ("conv0", "conv_cost", "conv1", "conv2")
 
     def __init__(self, G=1):
         super().__init__()
@@ -197,6 +273,13 @@ class CSPBlock(tnn.Module):
 
     def forward(self, cur_volume, prev_volume):
         with par.depth_blocks():
+            if reg_applies(cur_volume, self.training):
+                c0, cost, c1, c2 = (cuda_conv3d.layer(getattr(self, n))
+                                    for n in self.LAYERS)
+                run = _reg_layer
+                down = run(cur_volume.contiguous(), c0)
+                emb = run(prev_volume.contiguous(), cost)
+                return run(run(down, c1, x2=emb), c2)[..., 0]
             down = self.conv0(cur_volume)
             emb = self.conv_cost(prev_volume)
             fused = self.conv1(torch.cat([down, emb], dim=-1))

@@ -27,7 +27,7 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 SOURCES = ("warp_correlate.cu", "warp_correlate_bwd.cu", "conv_gru.cu",
-           "conv_chain.cu")
+           "conv_chain.cu", "conv3d_reg.cu")
 HEADERS = ("warp_project.cuh", "warp_window.cuh", "conv3x3_tile.cuh")
 BUILD_ROOT = PACKAGE_DIR.parent / "build" / "cuda_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -37,6 +37,7 @@ LIB_NAME = "libeffi_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points and their argument types (csrc/*.cu, extern "C")
 SIGNATURES = {
     "effi_warp_correlate": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
@@ -47,6 +48,8 @@ SIGNATURES = {
                                 _L, _I, _I, _P, _I, _P],
     "effi_conv_gru": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "effi_conv_chain": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "effi_conv3d_reg": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

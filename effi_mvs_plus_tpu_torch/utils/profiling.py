@@ -28,7 +28,8 @@ always on, plain integer adds by name: ``k1.launches`` to
 backward), ``conv_pack.packs`` (K2/K4 operands packed at call time),
 ``conv_wgrad.calls`` and ``conv_wgrad.patch_bytes`` (3-D weight
 gradients through ``ops/conv_wgrad.py``'s split-K GEMM, and the bytes of
-their patch matrices), ``engine.upload_bytes``.
+their patch matrices), ``conv3d_reg.launches`` (the fused 3-D layers of
+``ops/cuda_conv3d.py``, 25 a served forward), ``engine.upload_bytes``.
 
 A tracing block also reads one (``time.time_ns()``,
 ``time.perf_counter_ns()``) pair when it starts, its ``anchor``: Kineto

@@ -11,6 +11,7 @@ import torch
 import torch.distributed as dist
 
 from effi_mvs_plus_tpu_torch import nn, parallel
+from effi_mvs_plus_tpu_torch.models import blocks
 from effi_mvs_plus_tpu_torch.models.effi_mvs import _sweep_entropy
 from effi_mvs_plus_tpu_torch.parallel import mesh as par
 
@@ -107,6 +108,30 @@ def _entropy(pol, rank, world):
     return _rel(got, _sweep_entropy(sims))
 
 
+def _reg_fused(pol, rank, world, kind):
+    """CostRegNet or CSPBlock in eval mode with the fused 3-D path forced
+    (its plain version on the CPU), each layer on this rank's D-block of
+    the volumes with its halo, against the whole volumes'."""
+    torch.manual_seed(0)
+    m = (blocks.CostRegNet() if kind == "reg" else blocks.CSPBlock()).eval()
+    vols = ((_seeded(7, B, D, 8, 8, 1),) if kind == "reg" else
+            (_seeded(7, B, D, 8, 8, 1), _seeded(8, B, D, 4, 4, 1)))
+    n = D // world
+    saved = blocks.reg_applies
+    blocks.reg_applies = lambda x, training: True
+    try:
+        with torch.no_grad():
+            want = m(*vols)
+            with par.use_policy(pol):
+                got = m(*(v[:, rank * n:(rank + 1) * n] for v in vols))
+    finally:
+        blocks.reg_applies = saved
+    if kind != "reg":
+        got, want = (got,), (want,)
+    return max(_rel(g, w[:, rank * n:(rank + 1) * n])
+               for g, w in zip(got, want))
+
+
 CHECKS = {
     "halo_1_1": lambda *a: _halo(*a, 1, 1),
     "halo_1_0": lambda *a: _halo(*a, 1, 0),
@@ -121,6 +146,8 @@ CHECKS = {
                                           transpose=True,
                                           output_padding=(0, 1, 1)),
     "sweep_entropy": _entropy,
+    "cost_reg_fused_eval": lambda *a: _reg_fused(*a, "reg"),
+    "csp_fused_eval": lambda *a: _reg_fused(*a, "csp"),
 }
 
 

@@ -213,6 +213,28 @@ def _fpn(fused):
     return max(_rel(got[k], _rows(want[k], 1)) for k in want)
 
 
+def _reg_fused(kind):
+    """CostRegNet or CSPBlock in eval mode with the fused 3-D path forced
+    (its plain version on the CPU), each layer on this rank's rows of the
+    volumes with its halo, against the whole volumes'."""
+    torch.manual_seed(0)
+    m = (blocks.CostRegNet() if kind == "reg" else blocks.CSPBlock()).eval()
+    vols = ((_seeded(15, B, 4, H1, 8, 1),) if kind == "reg" else
+            (_seeded(15, B, 4, 2 * H1, W, 1), _seeded(16, B, 4, H1, W // 2, 1)))
+    saved = blocks.reg_applies
+    blocks.reg_applies = lambda x, training: True
+    try:
+        with torch.no_grad():
+            want = m(*vols)
+            with par.row_blocks():
+                got = m(*(_rows(v, 2) for v in vols))
+    finally:
+        blocks.reg_applies = saved
+    if kind != "reg":
+        got, want = (got,), (want,)
+    return max(_rel(g, _rows(w, 2)) for g, w in zip(got, want))
+
+
 CHECKS = {
     "halo_1_1": lambda *a: _halo(*a, 1, 1),
     "halo_2_1": lambda *a: _halo(*a, 2, 1),
@@ -236,6 +258,8 @@ CHECKS = {
     "warp_row_offset": _warp,
     "fpn_train": lambda *a: _fpn(False),
     "fpn_stem_chain_eval": lambda *a: _fpn(True),
+    "cost_reg_fused_eval": lambda *a: _reg_fused("reg"),
+    "csp_fused_eval": lambda *a: _reg_fused("csp"),
 }
 
 

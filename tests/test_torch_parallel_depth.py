@@ -7,7 +7,9 @@ CLI's default ``views,depth``) on the CPU, in gloo ranks.
   blocks (stride 1, stride 2, the stride-2 transpose of CostRegNet's
   ``conv6``/``conv7``, the (1,2,2) transpose of the CSP blocks), each on
   its block with halos against the whole volume's op sliced, to 1e-6
-  relative; and the stage-1 entropy with its max and sums from the group.
+  relative; ``CostRegNet`` and ``CSPBlock`` in eval mode with their fused
+  3-D layers (plain version) on the D-block, each layer with its halo;
+  and the stage-1 entropy with its max and sums from the group.
 * The equivalence gate (``parallel/equivalence.py``) of the depth layouts
   against the single process on the gate's batch (B=2, 3 views, 64x96,
   ``model_dtu.npz``): ``depth`` and ``views_depth`` in two ranks,

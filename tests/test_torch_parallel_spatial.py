@@ -10,7 +10,9 @@
   1e-6 relative; ``convex_upsample``, the ConvGRU (plain version) and the
   plain warp with a row offset and its autograd (the warp's forward
   bitwise the whole image's rows); the FPN in train mode and in eval mode
-  through the stem chain's plain version with chain-deep halos.
+  through the stem chain's plain version with chain-deep halos;
+  ``CostRegNet`` and ``CSPBlock`` in eval mode with their fused 3-D
+  layers (plain version), each layer with its halo rows.
 * The equivalence gate (``parallel/equivalence.py``) of the spatial
   layouts against the single process (``model_dtu.npz``): ``spatial``,
   ``views_spatial``, the uneven ``spatial_uneven`` (96 rows: stage 1
@@ -130,11 +132,11 @@ def test_row_hooks_are_identities_without_a_policy():
 
 def test_kernel_signatures_match_the_c_entry_points():
     """Each ``extern "C"`` entry point of csrc/*.cu takes, in order, the
-    argument types its ctypes declaration passes (a pointer, an int or a
-    long long each): a mismatch would cut or shift arguments on the card
-    only."""
+    argument types its ctypes declaration passes (a pointer, an int, a
+    long long or a float each): a mismatch would cut or shift arguments on
+    the card only."""
     kinds = {"void*": _kernels._P, "int": _kernels._I,
-             "longlong": _kernels._L}
+             "longlong": _kernels._L, "float": _kernels._F}
     found = {}
     for name in _kernels.SOURCES:
         src = (_kernels.CSRC / name).read_text()
