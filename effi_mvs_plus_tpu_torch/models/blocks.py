@@ -10,10 +10,10 @@ statistics and turns on the update block's two channel dropouts (p=0.1).
 under a depth policy their inputs are this rank's D-block of the volume
 and their 3-D layers exchange halos along D.  Inside
 ``parallel.row_blocks`` under a spatial policy every block's input is
-this rank's block of image rows: each convolution exchanges halo rows
-(``nn.Conv``), the ConvGRU's kernel, the stem chain and the fused 3-D
-layers run on the block with a halo as deep as they reach and are
-cropped.  Without a policy nothing changes.
+this rank's block of image rows.  Every convolution, the ConvGRU's
+kernel, the stem chain and the fused 3-D layers run on the block with
+the halo they reach and are cropped (``parallel.run_blocked``: each
+states only its taps and stride).  Without a policy nothing changes.
 """
 
 from __future__ import annotations
@@ -46,56 +46,17 @@ def stem_chain_applies(x, training):
 def reg_applies(x, training):
     """Whether ``CostRegNet`` and ``CSPBlock`` run their 3-D layers through
     ``cuda_conv3d.conv3d_reg``, a fused launch a layer: where the stem
-    chain runs (a CUDA tensor, eval mode, grad off).  On a block of the
-    volume (a depth or a spatial policy) each layer runs on the block
-    with its halo (``_reg_layer``)."""
+    chain runs (a CUDA tensor, eval mode, grad off), on the whole volume
+    or on a block of it (a depth or a spatial policy, ``_reg_layer``)."""
     return stem_chain_applies(x, training)
 
 
 def _reg_layer(x, layer, x2=None, res=None):
-    """``cuda_conv3d.conv3d_reg`` of one layer on the whole volume, or,
-    inside ``parallel.depth_blocks`` under a depth policy or
-    ``parallel.row_blocks`` under a spatial one, on this rank's D-block
-    or row block (``_reg_on_block``)."""
-    if par.depth_parts() > 1:
-        return _reg_on_block(x, layer, x2, res, 1, par.depth_halo)
-    if par.row_parts() > 1:
-        return _reg_on_block(x, layer, x2, res, 2, par.row_halo)
-    return cuda_conv3d.conv3d_reg(x, layer, x2, res)
-
-
-def _reg_on_block(x, layer, x2, res, axis, halo):
-    """One fused layer on the block x (and x2) of a volume along ``axis``
-    (D: 1, H: 2), whose other blocks the model group's ranks hold: the
-    block gains the entries the layer reaches from its neighbours
-    (``halo``: ``parallel.depth_halo`` or ``row_halo``, zeros past the
-    volume's ends), the kernel runs on it with its own zero padding, and
-    the result is cropped to this rank's block of the output, so every
-    output entry is the whole volume's, summed in the same order.  The
-    kernel's padding then reaches only outputs that are cropped away:
-    stride 1 takes one entry from each side and crops the first and last
-    output; stride 2 takes two from the left, which keeps the block's
-    entries at the parity of the whole volume's, and crops the first
-    output; the stride-2 transpose takes one from the right and crops the
-    last two.  ``res`` is padded with zeros to the extended output.  A
-    stride-2 block must start on an even entry (n even)."""
-    s, n = layer.stride[axis - 1], x.shape[axis]
-    if s == 1:
-        lo, hi, start, m = 1, 1, 1, n
-    elif layer.transpose:
-        lo, hi, start, m = 0, 1, 0, 2 * n
-    elif n % 2:
-        raise ValueError(f"a stride-2 layer does not map a block of {n} "
-                         f"along axis {axis} onto a block")
-    else:
-        lo, hi, start, m = 2, 0, 1, n // 2
-    xe = halo(x, lo, hi)
-    x2e = None if x2 is None else halo(x2, lo, hi)
-    if res is not None:
-        size = cuda_conv3d.out_shape(xe, layer)[axis]
-        res = torch.nn.functional.pad(
-            res, (0, 0) * (4 - axis) + (start, size - start - m))
-    return cuda_conv3d.conv3d_reg(xe, layer, x2e, res).narrow(axis, start, m)
+    """``cuda_conv3d.conv3d_reg`` of one layer, on this rank's block with
+    its halo where a policy blocks the volume (``parallel.run_blocked``)."""
+    return par.run_blocked(
+        lambda x, x2, res=None: cuda_conv3d.conv3d_reg(x, layer, x2, res),
+        x, x2, stride=layer.stride, transpose=layer.transpose, res=res)
 
 
 def freeze_kernel_weights(model):
@@ -171,13 +132,12 @@ class FeatureNet(tnn.Module):
             return specs, cuda_conv.pack(specs, x.dtype)
         specs, packed = (_frozen(self, (i, x.dtype), fold_and_pack)
                          or (fold(), None))
-        if par.row_parts() == 1:
-            return cuda_conv.conv_bn_relu_chain(x.contiguous(), specs, packed)
-        # a row block: as many halo rows as the chain has layers, none past
-        # the image's edges (where the kernel pads with zeros), then crop
-        xe, top = par.row_context(x, len(specs))
-        y = cuda_conv.conv_bn_relu_chain(xe.contiguous(), specs, packed)
-        return y.narrow(1, top, x.shape[1])
+        # on a row block the chain reaches one row a layer, its own zero
+        # padding at the image's edges
+        return par.run_blocked(
+            lambda t: cuda_conv.conv_bn_relu_chain(t.contiguous(), specs,
+                                                   packed),
+            x, taps=2 * len(specs) + 1, clip=True)
 
     def forward(self, x, stat_groups=1):
         fused = stem_chain_applies(x, self.training)
@@ -213,7 +173,7 @@ class CostRegNet(tnn.Module):
     pro (B,D,H,W,8)).  D, H, W must be divisible by 4, and so must a
     D-block (``DEPTH_MULTIPLE``): two stride-2 layers halve D.  Where
     ``reg_applies`` each of its 9 layers, with its BN, ReLU and residual,
-    is one ``cuda_conv3d.conv3d_reg`` (on a D-block or a row block, with
+    is one ``cuda_conv3d.conv3d_reg`` (on a D-block or a row block with
     its halo: ``_reg_layer``); elsewhere the blocks run one by one."""
 
     DEPTH_MULTIPLE = 4
@@ -320,17 +280,13 @@ class ConvGRU(tnn.Module):
 
     def forward(self, h, x):
         packed = _frozen(self, h.dtype, lambda: cuda_gru.pack(self, h.dtype))
-        if par.row_parts() == 1:
-            return cuda_gru.gru_step(h.contiguous(), x.contiguous(), self,
-                                     packed)
-        # a row block: q's 3x3 convolution of r*h reaches one row past the
-        # block, and r there two rows of [h, x]; the step runs on the block
-        # with two halo rows (none past the image's edges), then crops
-        hd = h.shape[-1]
-        hx, top = par.row_context(torch.cat([h, x], -1), 2)
-        out = cuda_gru.gru_step(hx[..., :hd].contiguous(),
-                                hx[..., hd:].contiguous(), self, packed)
-        return out.narrow(1, top, h.shape[1])
+        # q's 3x3 convolution of r*h reaches one row past r, and r one row
+        # of [h, x] past that: two rows, the kernel's own zero padding at
+        # the image's edges
+        return par.run_blocked(
+            lambda h, x: cuda_gru.gru_step(h.contiguous(), x.contiguous(),
+                                           self, packed),
+            h, x, taps=5, clip=True)
 
 
 class DepthHead(tnn.Module):

@@ -35,7 +35,7 @@ shipped state dict.
 * 3-D ``Conv`` inside ``parallel.depth_blocks`` under a depth policy —
   the input is this rank's D-block of a volume; the convolution runs on
   it with the halo planes of the neighbouring ranks in place of its
-  D-padding (``_conv_on_block``).  Every ``Conv`` inside
+  D-padding (``parallel.run_blocked``, ``valid``).  Every ``Conv`` inside
   ``parallel.row_blocks`` under a spatial policy does the same along H
   with the halo rows of the ranks above and below.
 * ``softmax`` — op by op as XLA computes ``jax.nn.softmax``, each step
@@ -180,6 +180,9 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.empty(cout)) if bias else None
         self.nd, self.stride, self.padding = nd, stride, padding
         self.transpose, self.output_padding = transpose, output_padding
+        # what an output reads, for a block of the input (parallel.on_block)
+        self.reach = {"taps": ks, "stride": stride, "transpose": transpose,
+                      "valid": True}
         self.reset_parameters()
 
     def reset_parameters(self):
@@ -191,59 +194,35 @@ class Conv(nn.Module):
             nn.init.uniform_(self.bias, -bound, bound)
 
     def forward(self, x):
-        if self.nd == 3 and par.depth_parts() > 1:
-            return _conv_on_block(self, x, 1, par.depth_halo)
-        if par.row_parts() > 1:
-            return _conv_on_block(self, x, x.dim() - 3, par.row_halo)
+        return par.run_blocked(self._conv, x, **self.reach)
+
+    def _conv(self, x, unpadded=None):
+        """The convolution; with no padding along axis ``unpadded`` of x
+        (a block with its halo, ``parallel.on_block``), where a padding of
+        (k - 1) / 2 (and a transpose's output padding of stride - 1) maps
+        a block onto a block."""
+        pad, opad = self.padding, self.output_padding
+        if unpadded is not None:
+            i, nd = unpadded - 1, self.nd
+            k, s = self.weight.shape[2 + i], _per_dim(self.stride, nd)[i]
+            pad, opad = _per_dim(pad, nd), _per_dim(opad, nd)
+            if 2 * pad[i] != k - 1 or (self.transpose and opad[i] != s - 1):
+                raise ValueError(
+                    f"a {nd}-D {'transpose ' if self.transpose else ''}"
+                    f"convolution (k {k}, stride {s}, padding {pad[i]}, "
+                    f"output padding {opad[i]} along axis {unpadded}) does "
+                    f"not map a block onto a block")
+            pad = pad[:i] + (0,) + pad[i + 1:]
+            opad = opad[:i] + (0,) + opad[i + 1:]
         if self.transpose:
             return conv_transpose3d(x, self.weight, self.bias, self.stride,
-                                    self.padding, self.output_padding)
+                                    pad, opad)
         fn = conv2d if self.nd == 2 else conv3d
-        return fn(x, self.weight, self.bias, self.stride, self.padding)
+        return fn(x, self.weight, self.bias, self.stride, pad)
 
 
 def _per_dim(v, nd):
     return (v,) * nd if isinstance(v, int) else tuple(v)
-
-
-def _conv_on_block(conv, x, axis, halo):
-    """``conv`` on this rank's block x of a tensor along ``axis`` (D of a
-    volume (B, Dl, H, W, C), or H of (B, Hl, W, C) and (B, D, Hl, W, C)),
-    whose other blocks the model group's ranks hold, in order.  The block
-    gains the entries the kernel reaches past its edges from the
-    neighbouring blocks (``halo``: ``parallel.depth_halo`` or
-    ``row_halo``, zeros past the whole tensor's ends, where it has its
-    zero padding), the convolution runs on it without padding along the
-    axis, and the result is cropped to this rank's block of the output:
-    n/s entries for a stride-s convolution, s·n for its transpose, so
-    that the blocks of every level line up.  A stride-2 layer's block
-    must start on an even entry (n even); its transpose needs one entry
-    from the right neighbour only, a stride-1 layer k//2 from each
-    side."""
-    nd, i = conv.nd, axis - 1            # i: the axis among the kernel's
-    k = conv.weight.shape[2 + i]
-    strides, pads = _per_dim(conv.stride, nd), _per_dim(conv.padding, nd)
-    opads = _per_dim(conv.output_padding, nd)
-    s, p, op = strides[i], pads[i], opads[i]
-    n = x.shape[axis]
-    if 2 * p != k - 1 or (op != s - 1 if conv.transpose else n % s):
-        raise ValueError(
-            f"a {nd}-D {'transpose ' if conv.transpose else ''}convolution "
-            f"(k {k}, stride {s}, padding {p}, output padding {op} along "
-            f"axis {axis}) does not map a block of {n} onto a block")
-    pads = pads[:i] + (0,) + pads[i + 1:]
-    if conv.transpose:
-        lo, hi = (k - 1 - p) // s, (p - 1) // s + 1
-        start, m = p + lo * s, n * s
-        y = conv_transpose3d(halo(x, lo, hi), conv.weight, conv.bias,
-                             strides, pads, opads[:i] + (0,) + opads[i + 1:])
-    else:
-        lo, hi = p, k - s - p
-        start, m = 0, n // s
-        fn = conv2d if nd == 2 else conv3d
-        y = fn(halo(x, lo, hi) if lo or hi else x, conv.weight, conv.bias,
-               strides, pads)
-    return y.narrow(axis, start, m)
 
 
 class BatchNorm(nn.Module):

@@ -8,6 +8,11 @@ in ``.gitignore``), keyed by a hash of the sources and flags, so an edit
 rebuilds and an unchanged tree loads what is there.  Nothing is built at
 import: ``library()`` builds on first use, which is the first launch of
 a kernel or an explicit ``build()``.
+
+Every wrapper launches through ``launch``: the device guard, the call on
+the current stream, the status check and the kernel's counter; the
+wrappers keep their own shape and argument checks, with ``check_dtype``
+and ``check_dense`` for what every kernel asks of its tensors.
 """
 
 from __future__ import annotations
@@ -23,6 +28,8 @@ import time
 from pathlib import Path
 
 import torch
+
+from effi_mvs_plus_tpu_torch.utils import profiling
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
@@ -51,6 +58,12 @@ SIGNATURES = {
     "effi_conv3d_reg": [_P, _P, _P, _P, _P, _P, _P, _P, _F, _P, _I, _I, _I,
                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
+# each entry's launch counter (utils/profiling.py)
+COUNTERS = {"warp_correlate": "k1.launches",
+            "warp_correlate_bwd": "k3.launches", "conv_gru": "k2.launches",
+            "conv_chain": "k4.launches", "conv3d_reg": "conv3d_reg.launches"}
+# the dtype code each entry takes before its stream
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _nvcc():
@@ -131,13 +144,54 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def check(status: int, what: str):
-    """Raise on a nonzero cudaError_t returned by a C entry point."""
+def check_dtype(**tensors):
+    """Raise ValueError unless the named tensors share one of ``DTYPES``."""
+    first, *rest = tensors.values()
+    if first.dtype not in DTYPES or any(t.dtype != first.dtype for t in rest):
+        got = " / ".join(str(t.dtype) for t in tensors.values())
+        raise ValueError(f"{' and '.join(tensors)} must share one of "
+                         f"{list(DTYPES)}, got {got}")
+
+
+def _dense(t, n):
+    """Whether the trailing ``n`` dims of t are dense (dims of one aside)."""
+    want = 1
+    for dim in range(t.dim() - 1, t.dim() - 1 - n, -1):
+        if t.shape[dim] != 1 and t.stride(dim) != want:
+            return False
+        want *= t.shape[dim]
+    return True
+
+
+def check_dense(inner=None, **tensors):
+    """Raise ValueError unless each named tensor (None skipped) can be read
+    16 bytes at a time as the kernels read it: dense (with ``inner``, its
+    trailing ``inner`` dims), its start 16-byte aligned and, with
+    ``inner``, each step along dim 0 too (one batch item a block)."""
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if not (t.is_contiguous() if inner is None else _dense(t, inner)):
+            raise ValueError(f"{name} must be dense (contiguous) in "
+                             f"{'all' if inner is None else inner} trailing "
+                             f"dims, got strides {t.stride()}")
+        if t.data_ptr() % 16 or (inner is not None and (
+                t.stride(0) * t.element_size()) % 16):
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async)"
+                             f"{'' if inner is None else ' per batch item'}")
+
+
+def launch(name, like, *args):
+    """Launch the entry ``effi_<name>`` with ``args``, then the dtype code
+    of ``like`` (a tensor the kernel reads) and the current stream of its
+    device; raise RuntimeError on a nonzero cudaError_t, and add one to
+    the entry's counter (``COUNTERS``)."""
+    lib = library()
+    with torch.cuda.device(like.device):
+        status = getattr(lib, "effi_" + name)(
+            *args, DTYPES[like.dtype],
+            torch.cuda.current_stream(like.device).cuda_stream)
     if status != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t "
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{status}")
-
-
-def stream_of(t):
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    profiling.count(COUNTERS[name])

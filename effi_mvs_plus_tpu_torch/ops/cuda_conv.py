@@ -24,7 +24,6 @@ import torch.nn.functional as F
 from effi_mvs_plus_tpu_torch.ops import _kernels, conv_pack
 from effi_mvs_plus_tpu_torch.utils import profiling
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # channel chains the kernel is built for (csrc/conv_chain.cu EFFI_CHAINS):
 # the six stride-1 runs of the two FPNs, then a one- and a three-layer
 # chain that only the GPU tests launch, to hold the kernel's layer count
@@ -75,30 +74,19 @@ def pack(specs, dtype):
 def _chain_cuda(x, specs, packed):
     B, H, W, _ = x.shape
     chans = (x.shape[-1],) + tuple(w.shape[0] for w, _ in specs)
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"x must be one of {list(_DTYPES)}, got {x.dtype}")
+    _kernels.check_dtype(x=x)
     if chans not in CHAINS:
         raise ValueError(f"channel chain {chans} is not one the kernel is "
                          f"built for: {CHAINS}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous (B,H,W,C)")
     out = torch.empty((B, H, W, chans[-1]), dtype=x.dtype, device=x.device)
-    for name, t in (("x", x), ("out", out)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
+    _kernels.check_dense(x=x, out=out)
     if packed is None:
         packed = pack(specs, x.dtype)
         profiling.count("conv_pack.packs")
     packed.check(x.dtype, x.device)
     c = list(chans) + [0] * (4 - len(chans))
-    lib = _kernels.library()
-    with torch.cuda.device(x.device):
-        status = lib.effi_conv_chain(
-            x.data_ptr(), packed.weights.data_ptr(), packed.bias.data_ptr(),
-            out.data_ptr(), B, H, W, *c, _DTYPES[x.dtype],
-            _kernels.stream_of(out))
-    _kernels.check(status, "conv_chain")
-    profiling.count("k4.launches")
+    _kernels.launch("conv_chain", x, x.data_ptr(), packed.weights.data_ptr(),
+                    packed.bias.data_ptr(), out.data_ptr(), B, H, W, *c)
     return out
 
 

@@ -35,9 +35,7 @@ import torch.nn.functional as F
 
 from effi_mvs_plus_tpu_torch import nn
 from effi_mvs_plus_tpu_torch.ops import _kernels
-from effi_mvs_plus_tpu_torch.utils import profiling
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (stride, transposed) -> the kernel's mode (csrc/conv3d_reg.cu); the
 # layers it is built for are listed there alone (EFFI_REG_LAYERS), and it
 # returns cudaErrorInvalidValue for any other
@@ -127,8 +125,7 @@ def _reg_torch(x, layer_, x2=None, res=None):
 
 
 def _reg_cuda(x, layer_, x2, res):
-    if x.dtype not in _DTYPES:
-        raise ValueError(f"x must be one of {list(_DTYPES)}, got {x.dtype}")
+    _kernels.check_dtype(x=x)
     co = layer_.channels[1]
     cia, cib = x.shape[-1], 0 if x2 is None else x2.shape[-1]
     mode = MODES.get((layer_.stride, layer_.transpose), -1)
@@ -139,28 +136,18 @@ def _reg_cuda(x, layer_, x2, res):
         raise ValueError("the weights and BN's tensors must be contiguous "
                          "fp32")
     out = torch.empty(out_shape(x, layer_), dtype=x.dtype, device=x.device)
-    for name, t in (("x", x), ("x2", x2), ("res", res), ("out", out)):
-        if t is None:
-            continue
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous channels-last")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
+    _kernels.check_dense(x=x, x2=x2, res=res, out=out)
     g, b, mean, var = (0, 0, 0, 0) if bn is None else (
         bn.weight.data_ptr(), bn.bias.data_ptr(), bn.running_mean.data_ptr(),
         bn.running_var.data_ptr())
     B, Di, Hi, Wi = x.shape[:4]
     _, Do, Ho, Wo, _ = out.shape
-    lib = _kernels.library()
-    with torch.cuda.device(x.device):
-        status = lib.effi_conv3d_reg(
-            x.data_ptr(), 0 if x2 is None else x2.data_ptr(),
-            0 if res is None else res.data_ptr(), layer_.weight.data_ptr(),
-            g, b, mean, var, 0.0 if bn is None else bn.eps, out.data_ptr(),
-            B, Di, Hi, Wi, Do, Ho, Wo, cia, cib, co, mode, int(layer_.relu),
-            int(res is not None), _DTYPES[x.dtype], _kernels.stream_of(out))
-    _kernels.check(status, "conv3d_reg")
-    profiling.count("conv3d_reg.launches")
+    _kernels.launch(
+        "conv3d_reg", x, x.data_ptr(), 0 if x2 is None else x2.data_ptr(),
+        0 if res is None else res.data_ptr(), layer_.weight.data_ptr(),
+        g, b, mean, var, 0.0 if bn is None else bn.eps, out.data_ptr(),
+        B, Di, Hi, Wi, Do, Ho, Wo, cia, cib, co, mode, int(layer_.relu),
+        int(res is not None))
     return out
 
 

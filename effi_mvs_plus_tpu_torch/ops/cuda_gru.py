@@ -29,7 +29,6 @@ from effi_mvs_plus_tpu_torch import nn
 from effi_mvs_plus_tpu_torch.ops import _kernels, conv_pack
 from effi_mvs_plus_tpu_torch.utils import profiling
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HIDDEN = (16, 32, 48)
 
 
@@ -92,9 +91,7 @@ def _pack(wz, wr, wq, bz, br, bq, dtype):
 def _gru_cuda(h, x, wz, wr, wq, bz, br, bq, packed=None):
     B, H, W, hd = h.shape
     dev = h.device
-    if h.dtype not in _DTYPES or x.dtype != h.dtype:
-        raise ValueError(f"h and x must share one of {list(_DTYPES)}, got "
-                         f"{h.dtype} / {x.dtype}")
+    _kernels.check_dtype(h=h, x=x)
     if hd not in _HIDDEN:
         raise ValueError(f"hidden width must be one of {_HIDDEN}, got {hd}")
     if tuple(x.shape) != (B, H, W, hd):
@@ -107,24 +104,15 @@ def _gru_cuda(h, x, wz, wr, wq, bz, br, bq, packed=None):
                     ("bz", bz), ("br", br), ("bq", bq)):
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, h on {dev}")
-    if not (h.is_contiguous() and x.is_contiguous()):
-        raise ValueError("h and x must be contiguous (B,H,W,hd)")
     out = torch.empty_like(h)
-    for name, t in (("h", h), ("x", x), ("out", out)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
+    _kernels.check_dense(h=h, x=x, out=out)
     if packed is None:
         packed = _pack(wz, wr, wq, bz, br, bq, h.dtype)
         profiling.count("conv_pack.packs")
     packed.check(h.dtype, dev)
-    lib = _kernels.library()
-    with torch.cuda.device(dev):
-        status = lib.effi_conv_gru(
-            h.data_ptr(), x.data_ptr(), packed.weights.data_ptr(),
-            packed.bias.data_ptr(), out.data_ptr(), B, H, W, hd,
-            _DTYPES[h.dtype], _kernels.stream_of(out))
-    _kernels.check(status, "conv_gru")
-    profiling.count("k2.launches")
+    _kernels.launch("conv_gru", h, h.data_ptr(), x.data_ptr(),
+                    packed.weights.data_ptr(), packed.bias.data_ptr(),
+                    out.data_ptr(), B, H, W, hd)
     return out
 
 

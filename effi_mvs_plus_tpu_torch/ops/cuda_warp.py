@@ -29,9 +29,7 @@ from __future__ import annotations
 import torch
 
 from effi_mvs_plus_tpu_torch.ops import _kernels, warp
-from effi_mvs_plus_tpu_torch.utils import profiling
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CHANNELS = (8, 16, 32)
 
 # The kernels' decomposition (csrc/warp_window.cuh): a block owns a
@@ -83,20 +81,6 @@ def _views_torch(ref_fea, src_feas, rots, transs, depth, y0=0):
          for v in range(V)], dim=1)
 
 
-def _check_aligned(name, t, inner):
-    """The kernel reads ``inner`` trailing dims as one dense block per
-    leading index, 16 bytes at a time."""
-    want = 1
-    for dim in range(t.dim() - 1, t.dim() - 1 - inner, -1):
-        if t.shape[dim] != 1 and t.stride(dim) != want:
-            raise ValueError(f"{name}: trailing {inner} dims must be dense, "
-                             f"got strides {t.stride()}")
-        want *= t.shape[dim]
-    esz = t.element_size()
-    if t.data_ptr() % 16 or (t.stride(0) * esz) % 16:
-        raise ValueError(f"{name}: must be 16-byte aligned per batch item")
-
-
 def _check_inputs(ref_fea, src_feas, rots, transs, depth, y0):
     """Raise on what the kernels do not take; returns rots and transs as
     the contiguous fp32 tensors the kernels read."""
@@ -104,9 +88,7 @@ def _check_inputs(ref_fea, src_feas, rots, transs, depth, y0):
     V, Hs = src_feas.shape[1], src_feas.shape[2]
     D = depth.shape[1]
     dev = ref_fea.device
-    if ref_fea.dtype not in _DTYPES or src_feas.dtype != ref_fea.dtype:
-        raise ValueError(f"features must share one of {list(_DTYPES)}, got "
-                         f"{ref_fea.dtype} / {src_feas.dtype}")
+    _kernels.check_dtype(ref_fea=ref_fea, src_feas=src_feas)
     if C not in _CHANNELS:
         raise ValueError(f"channels must be one of {_CHANNELS}, got {C}")
     if tuple(src_feas.shape) != (B, V, Hs, W, C) or not (
@@ -125,8 +107,9 @@ def _check_inputs(ref_fea, src_feas, rots, transs, depth, y0):
             raise ValueError(f"{name} is on {t.device}, ref_fea on {dev}")
     if Hs >= 2 ** 15 or W >= 2 ** 15:
         raise ValueError(f"maps must be under 32768 a side, got {Hs}x{W}")
-    _check_aligned("ref_fea", ref_fea, 3)
-    _check_aligned("src_feas", src_feas, 4)
+    # each batch item's map dense and 16-byte aligned
+    _kernels.check_dense(3, ref_fea=ref_fea)
+    _kernels.check_dense(4, src_feas=src_feas)
     return (rots.to(torch.float32).contiguous(),
             transs.to(torch.float32).contiguous())
 
@@ -152,16 +135,11 @@ def _views_cuda(ref_fea, src_feas, rots, transs, depth, stats=None, y0=0):
     dev = ref_fea.device
     dc, cap = window_plan("fwd", C, ref_fea.dtype, D)
     out = torch.empty((B, V, D, H, W), dtype=ref_fea.dtype, device=dev)
-    lib = _kernels.library()
-    with torch.cuda.device(dev):
-        status = lib.effi_warp_correlate(
-            ref_fea.data_ptr(), src_feas.data_ptr(), rots.data_ptr(),
-            transs.data_ptr(), depth.data_ptr(), out.data_ptr(),
-            B, V, D, H, Hs, W, C, y0, ref_fea.stride(0), src_feas.stride(0),
-            *depth.stride(), dc, cap, _stats_ptr(stats, 2, dev),
-            _DTYPES[ref_fea.dtype], _kernels.stream_of(out))
-    _kernels.check(status, "warp_correlate")
-    profiling.count("k1.launches")
+    _kernels.launch(
+        "warp_correlate", ref_fea, ref_fea.data_ptr(), src_feas.data_ptr(),
+        rots.data_ptr(), transs.data_ptr(), depth.data_ptr(), out.data_ptr(),
+        B, V, D, H, Hs, W, C, y0, ref_fea.stride(0), src_feas.stride(0),
+        *depth.stride(), dc, cap, _stats_ptr(stats, 2, dev))
     return out
 
 
@@ -183,17 +161,13 @@ def _views_bwd_cuda(ref_fea, src_feas, rots, transs, depth, g, stats=None,
     d_ref = torch.empty((B, H, W, C), dtype=ref_fea.dtype, device=dev)
     part = torch.empty((B, V, H, W, C), dtype=torch.float32, device=dev)
     d_src = torch.zeros((B, V, Hs, W, C), dtype=torch.float32, device=dev)
-    lib = _kernels.library()
-    with torch.cuda.device(dev):
-        status = lib.effi_warp_correlate_bwd(
-            ref_fea.data_ptr(), src_feas.data_ptr(), rots.data_ptr(),
-            transs.data_ptr(), depth.data_ptr(), g.data_ptr(),
-            d_ref.data_ptr(), part.data_ptr(), d_src.data_ptr(),
-            B, V, D, H, Hs, W, C, y0, ref_fea.stride(0), src_feas.stride(0),
-            *depth.stride(), dc, cap, _stats_ptr(stats, 3, dev),
-            _DTYPES[ref_fea.dtype], _kernels.stream_of(d_ref))
-    _kernels.check(status, "warp_correlate_bwd")
-    profiling.count("k3.launches")
+    _kernels.launch(
+        "warp_correlate_bwd", ref_fea, ref_fea.data_ptr(),
+        src_feas.data_ptr(), rots.data_ptr(), transs.data_ptr(),
+        depth.data_ptr(), g.data_ptr(), d_ref.data_ptr(), part.data_ptr(),
+        d_src.data_ptr(), B, V, D, H, Hs, W, C, y0, ref_fea.stride(0),
+        src_feas.stride(0), *depth.stride(), dc, cap,
+        _stats_ptr(stats, 3, dev))
     return d_ref, d_src.to(src_feas.dtype)
 
 

@@ -22,12 +22,15 @@ def convex_upsample(value, mask, ratio):
     B, H, W = value.shape
     r = ratio
     m = torch.softmax(mask.reshape(B, H, W, 9, r, r), dim=3)
-    if par.row_parts() > 1:
-        p = F.pad(par.row_halo(value[..., None], 1, 1)[..., 0], (1, 1))
-    else:
-        p = F.pad(value, (1, 1, 1, 1))
-    nb = torch.stack([p[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
-                      for dy in (-1, 0, 1) for dx in (-1, 0, 1)],
-                     dim=-1)                                  # (B,H,W,9)
+    nb = par.run_blocked(_neighbours, value[..., None])       # (B,H,W,9)
     up = torch.einsum("bhwkyx,bhwk->bhwyx", m, nb)            # (B,H,W,r,r)
     return up.permute(0, 1, 3, 2, 4).reshape(B, H * r, W * r)
+
+
+def _neighbours(v):
+    """(B,H,W,1) -> (B,H,W,9): each pixel's 3x3 neighbourhood, zero padded,
+    in row-major (dy, dx) order."""
+    H, W = v.shape[1:3]
+    p = F.pad(v, (0, 0, 1, 1, 1, 1))
+    return torch.cat([p[:, 1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+                      for dy in (-1, 0, 1) for dx in (-1, 0, 1)], dim=-1)

@@ -26,7 +26,7 @@ process group.
   of the view sums (``depth_slices``).  The 3-D U-Net and the CSP blocks
   run on the block (``depth_blocks``): each 3-D convolution takes the
   planes its kernel reaches past the block's edges from the neighbouring
-  ranks (``depth_halo``), and train-mode BN sums over the group as well.
+  ranks (``halo``), and train-mode BN sums over the group as well.
   The regularised volumes are gathered along D (``gather_depths``) and
   the rest of the network runs replicated.
 * ``model``, layout ``spatial`` — each model rank holds a block of image
@@ -34,7 +34,7 @@ process group.
   levels, the per-stage features, the GRU hiddens, the cost volumes.
   Within ``row_blocks`` every convolution takes the rows its kernel
   reaches past the block's edges from the neighbouring ranks
-  (``row_halo``) and train-mode BN sums over the group.  A block of
+  (``halo``) and train-mode BN sums over the group.  A block of
   reference rows is warped against the whole source features, gathered
   along H (``gather_rows``); the depth maps and the confidence are
   gathered at the end.  With ``views`` (``views,spatial``), as in JAX,
@@ -115,8 +115,8 @@ class _Halo(torch.autograd.Function):
     the whole tensor.  Every rank puts its edge entries in its slot of a
     zero buffer and one all_reduce hands each rank every slot.  The
     backward returns each halo's gradient to the rank that owns those
-    entries, the same way.  Along D (``depth_halo``) and along H
-    (``row_halo``); blocks may differ in length, the slots do not."""
+    entries, the same way.  Along D or along H (``halo``); blocks may
+    differ in length, the slots do not."""
 
     @staticmethod
     def forward(ctx, x, axis, lo, hi, group, rank, size):
@@ -448,9 +448,9 @@ def use_policy(policy: Optional[ShardingPolicy]):
 @contextlib.contextmanager
 def depth_blocks():
     """Marks a module that runs on this rank's D-block of a volume
-    (``CostRegNet``, ``CSPBlock``): under a depth policy its 3-D
-    convolutions take their halos from the neighbouring ranks
-    (``nn.Conv``) and its train-mode BN sums over the model group."""
+    (``CostRegNet``, ``CSPBlock``): under a depth policy its 3-D layers
+    take their halos from the neighbouring ranks (``run_blocked``) and
+    its train-mode BN sums over the model group."""
     prev = getattr(_tls, "depth", False)
     _tls.depth = True
     try:
@@ -483,9 +483,9 @@ def row_blocks(on=True):
     """Marks code that runs on this rank's block of rows of every tensor
     (``on``), or on all rows (``on=False``, the view-sharded part under
     ``views,spatial``): inside ``image_rows`` under spatial sharding,
-    its convolutions take their halos from the neighbouring ranks
-    (``nn.Conv``, the ConvGRU, the stem chain, ``convex_upsample``) and
-    its train-mode BN sums over the model group."""
+    its convolutions, the ConvGRU, the stem chain, the fused 3-D layers
+    and ``convex_upsample`` take their halos from the neighbouring ranks
+    (``run_blocked``) and its train-mode BN sums over the model group."""
     prev = getattr(_tls, "row_blocks", False)
     _tls.row_blocks = on
     try:
@@ -545,15 +545,6 @@ def gather_view_stats(*xs):
     return pol.gather_view_stats(xs, *views)
 
 
-def _depth_blocked() -> Optional[ShardingPolicy]:
-    """The active policy inside ``depth_blocks`` under depth sharding."""
-    pol = _active()
-    if pol is None or not pol.shard_depth or not getattr(_tls, "depth",
-                                                         False):
-        return None
-    return pol
-
-
 def _row_split() -> Optional[list]:
     """Every model rank's [start, stop) of the image rows inside
     ``image_rows`` under spatial sharding; None elsewhere."""
@@ -563,43 +554,26 @@ def _row_split() -> Optional[list]:
     return getattr(_tls, "rows", None)
 
 
-def _row_blocked() -> Optional[ShardingPolicy]:
-    """The active policy inside ``row_blocks`` under spatial sharding."""
-    if _row_split() is None or not getattr(_tls, "row_blocks", False):
-        return None
-    return _active()
-
-
 def _blocked():
     """The active policy and the axis, ``"depth"`` or ``"rows"``, of the
-    block that code inside ``depth_blocks`` or ``row_blocks`` runs on, or
-    (None, None).  Raises RuntimeError where both are active: no layout
-    splits a tensor along D and H at once (under ``depth,spatial`` the
-    volume part runs inside ``row_blocks(False)``), and a module there
-    would take halos along both axes and count its BN elements twice."""
-    depth, rows = _depth_blocked(), _row_blocked()
-    if depth is not None and rows is not None:
+    block that code inside ``depth_blocks`` under a depth policy or
+    ``row_blocks`` under a spatial one runs on, or (None, None).  Raises
+    RuntimeError where both are active: no layout splits a tensor along D
+    and H at once (under ``depth,spatial`` the volume part runs inside
+    ``row_blocks(False)``), and a module there would take halos along
+    both axes and count its BN elements twice."""
+    pol = _active()
+    depth = (pol is not None and pol.shard_depth
+             and getattr(_tls, "depth", False))
+    rows = _row_split() is not None and getattr(_tls, "row_blocks", False)
+    if depth and rows:
         raise RuntimeError(
             "a module runs inside depth_blocks and row_blocks at once: one "
             "tensor split along D and H, which no layout does; run the "
             "volume part inside row_blocks(False)")
-    if depth is not None:
-        return depth, "depth"
-    return (rows, "rows") if rows is not None else (None, None)
-
-
-def depth_parts() -> int:
-    """The model ranks that share a volume's D inside ``depth_blocks`` (1
-    elsewhere)."""
-    pol, axis = _blocked()
-    return pol.mesh.model if axis == "depth" else 1
-
-
-def row_parts() -> int:
-    """The model ranks that share the image rows inside ``row_blocks``
-    (1 elsewhere)."""
-    pol, axis = _blocked()
-    return pol.mesh.model if axis == "rows" else 1
+    if depth:
+        return pol, "depth"
+    return (pol, "rows") if rows else (None, None)
 
 
 def reduce_blocks(x):
@@ -645,36 +619,91 @@ def block_count(n, h_local):
     return n
 
 
-def depth_halo(x, lo, hi):
-    """Inside ``depth_blocks``: the D-block x with ``lo`` planes of its
-    left neighbour's and ``hi`` of its right neighbour's (zeros past the
-    volume's ends), differentiable (``_Halo``)."""
-    m = _depth_blocked().mesh
-    return _Halo.apply(x, 1, lo, hi, m.model_group, m.model_rank, m.model)
+def _block_axis(kind, x):
+    """The axis of x a block of ``kind`` (``_blocked``) cuts: D of a volume
+    (B, D, H, W, C), or the rows of (B, H, W, C) and (B, D, H, W, C); None
+    where x is whole."""
+    if kind == "depth":
+        return 1 if x.dim() == 5 else None
+    return None if kind is None else x.dim() - 3
 
 
-def row_halo(x, lo, hi):
-    """Inside ``row_blocks``: the row block x (rows on axis -3, as in
-    (B,H,W,C) and (B,D,H,W,C)) with ``lo`` rows of the rank above's
-    block and ``hi`` of the rank below's (zeros past the image's top and
-    bottom), differentiable (``_Halo``)."""
-    m = _row_blocked().mesh
-    return _Halo.apply(x, x.dim() - 3, lo, hi, m.model_group, m.model_rank,
-                       m.model)
+def halo(x, lo, hi):
+    """Inside ``depth_blocks`` or ``row_blocks``: the block x with ``lo``
+    entries of the block before it (the left D-block, the rank above's
+    rows) and ``hi`` of the block after it along the axis they cut, zeros
+    past the whole tensor's ends, differentiable (``_Halo``)."""
+    pol, kind = _blocked()
+    m = pol.mesh
+    return _Halo.apply(x, _block_axis(kind, x), lo, hi, m.model_group,
+                       m.model_rank, m.model)
 
 
-def row_context(x, n):
-    """Inside ``row_blocks``: the row block x with ``n`` rows of each
-    neighbour's block and none past the image's top and bottom, and the
-    rows added on top: a kernel that pads the tensor it is given with
-    zeros (K2, K4) pads there as it pads the whole image, and its rows
-    [top, top + h) are the block's."""
-    m = _row_blocked().mesh
-    ext = row_halo(x, n, n)
-    top = n if m.model_rank > 0 else 0
-    bottom = n if m.model_rank < m.model - 1 else 0
-    axis = x.dim() - 3
-    return ext.narrow(axis, n - top, x.shape[axis] + top + bottom), top
+def run_blocked(fn, *xs, res=None, **reach):
+    """``fn(*xs)`` (with ``res=res`` where given) on the whole tensors, or,
+    inside ``depth_blocks`` under a depth policy or ``row_blocks`` under
+    a spatial one, on this rank's blocks of them with the halo the op
+    reaches (``on_block``; ``reach`` its keywords).  The one place that
+    decides where an op runs: without a policy it returns ``fn(*xs)``
+    untouched."""
+    pol, kind = _blocked()
+    axis = _block_axis(kind, xs[0])
+    if axis is None:
+        return fn(*xs) if res is None else fn(*xs, res=res)
+    rank, size = pol.mesh.model_rank, pol.mesh.model
+    return on_block(fn, xs, axis, halo, (rank == 0, rank == size - 1),
+                    res=res, **reach)
+
+
+def _per_dim(v, nd):
+    return (v,) * nd if isinstance(v, int) else tuple(v)
+
+
+def on_block(fn, xs, axis, exchange, ends, taps=3, stride=1,
+             transpose=False, valid=False, clip=False, res=None):
+    """``fn`` on the blocks ``xs`` (None skipped; n entries along ``axis``)
+    of tensors whose other blocks the neighbouring ranks hold, cropped to
+    this block's share of the whole output: each entry from the same
+    inputs as on the whole tensor.  The op along the axis: ``taps``
+    centred entries at ``stride`` (an int or one a spatial dim each), or
+    a ``transpose`` convolution (output padding stride - 1).
+    ``exchange(t, lo, hi)`` adds the neighbours' entries, zeros past the
+    ends.  ``valid``: fn takes ``unpadded=axis`` and does not pad it.
+    Otherwise fn pads itself and only cropped outputs read that padding
+    (a stride-s block takes a multiple of s from the left, for parity).
+    ``clip`` (stride 1): no halo past the ends (``ends``: first, last
+    block), where fn's own padding stands, as K4's and K2's inner layers
+    need.  ``res`` (fn's, the output's shape) is zero padded to the
+    extended output.  A stride-s block holds a multiple of s entries."""
+    x = xs[0]
+    k = _per_dim(taps, x.dim() - 2)[axis - 1]
+    s = _per_dim(stride, x.dim() - 2)[axis - 1]
+    n, p = x.shape[axis], (k - 1) // 2
+    pad = 0 if valid else p             # fn's own zero padding
+    if transpose:
+        lo, hi = (k - 1 - p) // s, (p + s - 1) // s
+    elif n % s:
+        raise ValueError(f"a stride-{s} op does not map a block of {n} along "
+                         f"axis {axis} onto a block")
+    else:
+        lo, hi = (p if valid else -(-p // s) * s), k - s - p
+    first, last = ends if clip else (False, False)
+    top, bottom = (0 if first else lo), (0 if last else hi)
+
+    def extend(t):
+        if t is None or not (lo or hi):
+            return t
+        ext = exchange(t, lo, hi)
+        return ext.narrow(axis, lo - top, n + top + bottom) if clip else ext
+    start = s * top + p - pad if transpose else (top + pad - p) // s
+    m = n * s if transpose else n // s
+    kw = {"unpadded": axis} if valid else {}
+    if res is not None:
+        ne = n + top + bottom
+        size = ne * s if transpose else (ne - 1) // s + 1
+        kw["res"] = torch.nn.functional.pad(
+            res, (0, 0) * (res.dim() - 1 - axis) + (start, size - start - m))
+    return fn(*map(extend, xs), **kw).narrow(axis, start, m)
 
 
 def row_slice(h):

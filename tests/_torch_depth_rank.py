@@ -35,7 +35,7 @@ def _halo(pol, rank, world, lo, hi):
     x = _seeded(1, B, D, H, W, C)
     xl = x[:, rank * n:(rank + 1) * n].clone().requires_grad_()
     with par.use_policy(pol), par.depth_blocks():
-        ext = par.depth_halo(xl, lo, hi)
+        ext = par.halo(xl, lo, hi)
     padded = torch.cat([x.new_zeros(B, lo, H, W, C), x,
                         x.new_zeros(B, hi, H, W, C)], 1)
     fwd = _rel(ext, padded[:, rank * n:(rank + 1) * n + lo + hi])

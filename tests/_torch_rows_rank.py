@@ -47,7 +47,7 @@ def _halo(rank, world, lo, hi):
     x = _seeded(1, B, H1, W, C)
     xl = _rows(x, 1).clone().requires_grad_()
     with par.row_blocks():
-        ext = par.row_halo(xl, lo, hi)
+        ext = par.halo(xl, lo, hi)
     start = par.row_slice(H1).start
     n = xl.shape[1]
     padded = torch.cat([x.new_zeros(B, lo, W, C), x,

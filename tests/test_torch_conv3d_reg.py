@@ -147,11 +147,11 @@ def test_a_layer_reads_the_modules_own_tensors(kind):
 
 
 def on_blocks(layer, x, x2, res, axis, split):
-    """``blocks._reg_on_block`` on the blocks [0, split) and [split, n) of
-    x (and x2) along ``axis``, each given its halo cut from the whole
-    tensor padded with zeros, in a new contiguous tensor (as
-    ``parallel.depth_halo`` and ``row_halo`` hand it), and the residual's
-    blocks; the outputs joined."""
+    """``parallel.on_block`` with one fused layer on the blocks [0, split)
+    and [split, n) of x (and x2) along ``axis``, each given its halo cut
+    from the whole tensor padded with zeros, in a new contiguous tensor
+    (as ``parallel.halo`` hands it), and the residual's blocks; the
+    outputs joined."""
     n, s = x.shape[axis], layer.stride[axis - 1]
     outs = []
     for a, b in ((0, split), (split, n)):
@@ -166,7 +166,10 @@ def on_blocks(layer, x, x2, res, axis, split):
                     memory_format=torch.contiguous_format)
         oa, ob = (a * s, b * s) if layer.transpose else (a // s, b // s)
         rb = None if res is None else res.narrow(axis, oa, ob - oa)
-        outs.append(blocks._reg_on_block(xb, layer, x2b, rb, axis, halo))
+        outs.append(par.on_block(
+            lambda x, x2, res=None: cuda_conv3d.conv3d_reg(x, layer, x2, res),
+            (xb, x2b), axis, halo, (a == 0, b == n), stride=layer.stride,
+            transpose=layer.transpose, res=rb))
     return torch.cat(outs, axis)
 
 
@@ -174,7 +177,7 @@ def on_blocks(layer, x, x2, res, axis, split):
 @pytest.mark.parametrize("kind", list(KINDS))
 def test_a_layer_on_blocks_with_halos_is_the_whole_volumes(kind, axis):
     """Each layer kind on two blocks of the volume along D or H (a depth
-    or a spatial policy's blocks), each with the halo ``_reg_on_block``
+    or a spatial policy's blocks), each with the halo ``parallel.on_block``
     asks for, joined: the whole volume's output, in fp32 to 1e-6 of its
     largest value."""
     blk = _block(kind)
@@ -276,11 +279,11 @@ def test_the_fused_path_engages_only_where_it_may(case):
     with torch.set_grad_enabled(case == "grad"):
         if case == "depth_policy":
             with par.use_policy(depth), par.depth_blocks():
-                assert par.depth_parts() == 2
+                assert par._blocked()[1] == "depth"
                 got = blocks.reg_applies(x, training)
         elif case == "row_policy":
             with par.use_policy(rows), par.image_rows(128), par.row_blocks():
-                assert par.row_parts() == 2
+                assert par._blocked()[1] == "rows"
                 got = blocks.reg_applies(x, training)
         else:
             got = blocks.reg_applies(x, training)

@@ -122,7 +122,7 @@ def test_two_calls_are_bitwise_equal(gpu, name, dtype):
 def test_a_layer_on_blocks_with_halos_is_the_whole_volumes(gpu, name, dtype,
                                                            axis):
     """The kernel on two blocks of the volume along D or H, each with the
-    halo ``blocks._reg_on_block`` asks for (as under a depth or a spatial
+    halo ``parallel.on_block`` asks for (as under a depth or a spatial
     policy), joined, against the kernel on the whole volume, at
     ``test_kernel_matches_the_plain_version``'s tolerance."""
     from test_torch_conv3d_reg import on_blocks

@@ -11,7 +11,8 @@ Each case holds the emulation against the plain version
 (``_views_torch`` and its autograd; atol 1e-5 * max(1, max |plain|), fp32)
 and against the JAX package's XLA path (``pallas_warp._views_xla`` and
 ``jax.vjp`` of it, as tests/test_torch_warp.py and
-tests/test_torch_warp_bwd.py do; atol 1e-4 * max(1, max |want|)), on
+tests/test_torch_warp_bwd.py do; atol 1e-4 * max(1, max |want|)), both
+made once for the three budgets of a case and the XLA path compiled, on
 ragged tiles and chunks, two batch items, an ordinary rig, one that leaves
 the image and one that sees hypotheses from behind, C = 8, 16, 32, the
 expanded stage-1 sweep and per-pixel depths, at the launches' window
@@ -56,34 +57,68 @@ def _close(got, want, atol, what):
     assert err <= atol * scale, f"{what}: {err:.3e} (scale {scale:.3g})"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this file: the emulation runs thousands of
+    tiny ops, whose parallel regions wait on each other's threads on a
+    host shared with other test workers (six cases: 43 s against 7 s
+    beside seven busy processes on eight cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@jax.jit
+def _xla_and_vjp(ref, srcs, rots, trs, depth, g):
+    """``pw._views_xla`` and its vjp at g, compiled once a shape."""
+    want, vjp = jax.vjp(
+        lambda rf, sf: pw._views_xla(rf, sf, rots, trs, depth, 1), ref, srcs)
+    return (want, *vjp(g))
+
+
+_REFERENCES = {}
+
+
+def _references(rig, C, depth_kind):
+    """The case's inputs, its plain version with its autograd, and the JAX
+    package's XLA path with its vjp, made once per (rig, C, depth_kind):
+    neither depends on the window budget."""
+    key = (rig, C, depth_kind)
+    if key not in _REFERENCES:
+        inputs = _case(rig, C, depth_kind)
+        ref, srcs, rots, trs, depth, g = inputs
+        r, s = ref.clone().requires_grad_(), srcs.clone().requires_grad_()
+        plain = cuda_warp._views_torch(r, s, rots, trs, depth)
+        plain.backward(g)
+        jax_ = [torch.from_numpy(np.array(w)) for w in _xla_and_vjp(
+            *(jnp.asarray(a.contiguous().numpy()) for a in inputs))]
+        _REFERENCES[key] = inputs, (plain.detach(), r.grad, s.grad), jax_
+    return _REFERENCES[key]
+
+
 @pytest.mark.parametrize("cap", [None, 150, 6],
                          ids=["budget", "150_texels", "six_texels"])
 @pytest.mark.parametrize("depth_kind", ["sweep", "per_pixel"])
 @pytest.mark.parametrize("C", [8, 16, 32])
 @pytest.mark.parametrize("rig", ["ordinary", "off_image", "behind"])
 def test_window_decomposition_matches_plain_and_jax(rig, C, depth_kind, cap):
-    ref, srcs, rots, trs, depth, g = _case(rig, C, depth_kind)
+    (ref, srcs, rots, trs, depth, g), plain, jax_ = _references(
+        rig, C, depth_kind)
     corr, fstats = warp_window.window_correlate(ref, srcs, rots, trs, depth,
                                               cap=cap)
     d_ref, d_src, bstats = warp_window.window_correlate_bwd(
         ref, srcs, rots, trs, depth, g, cap=cap)
 
     # the plain version and its autograd
-    r, s = ref.clone().requires_grad_(), srcs.clone().requires_grad_()
-    plain = cuda_warp._views_torch(r, s, rots, trs, depth)
-    plain.backward(g)
-    _close(corr, plain.detach(), 1e-5, "corr vs plain")
-    _close(d_ref, r.grad, 1e-5, "d_ref vs plain")
-    _close(d_src, s.grad, 1e-5, "d_src vs plain")
+    for name, got, want in zip(("corr", "d_ref", "d_src"),
+                               (corr, d_ref, d_src), plain):
+        _close(got, want, 1e-5, f"{name} vs plain")
 
     # the JAX package's XLA path and its vjp
-    args = [jnp.asarray(a.numpy()) for a in (rots, trs, depth.contiguous())]
-    want, vjp = jax.vjp(lambda rf, sf: pw._views_xla(rf, sf, *args, 1),
-                        jnp.asarray(ref.numpy()), jnp.asarray(srcs.numpy()))
-    _close(corr, torch.from_numpy(np.array(want)), 1e-4, "corr vs JAX")
-    for name, got, w in zip(("d_ref", "d_src"), (d_ref, d_src),
-                            vjp(jnp.asarray(g.numpy()))):
-        _close(got, torch.from_numpy(np.array(w)), 1e-4, f"{name} vs JAX")
+    for name, got, want in zip(("corr", "d_ref", "d_src"),
+                               (corr, d_ref, d_src), jax_):
+        _close(got, want, 1e-4, f"{name} vs JAX")
 
     # every in-image tap is served once, from a window or from the map
     assert fstats["window"] + fstats["device"] > 0
